@@ -13,8 +13,10 @@ compute-dtype policy of the port:
   and return float32. ``BatchNorm2d.forward(x, train)`` takes the mode as an
   argument, as the JAX modules do; ``nn.Module.train()`` is not consulted.
   momentum 0.1 equals Flax's 0.9 (the conventions are one minus the other).
-  The running variance is updated with the *unbiased* batch variance (PyTorch's
-  rule); Flax uses the biased one, a factor n/(n−1) on the update term.
+  The running variance folds in the *biased* batch variance, as
+  ``flax.linen.BatchNorm`` does (``F.batch_norm`` would fold in the unbiased
+  one, a factor n/(n−1) on the update term), so that a trained model's
+  ``train=False`` output equals the JAX package's.
 """
 
 from __future__ import annotations
@@ -41,12 +43,21 @@ class BatchNorm2d(nn.BatchNorm2d):
     """float32 batch norm with an explicit ``train`` argument."""
 
     def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
-        if train:
-            self.num_batches_tracked += 1
-        return F.batch_norm(
-            x.float(), self.running_mean, self.running_var, self.weight, self.bias,
-            training=train, momentum=self.momentum, eps=self.eps,
+        if not train:
+            return F.batch_norm(
+                x.float(), self.running_mean, self.running_var, self.weight, self.bias,
+                training=False, momentum=self.momentum, eps=self.eps,
+            )
+        # the statistics are updated by hand from the batch mean and the biased
+        # batch variance (1/invstd² − eps) that the normalisation saves anyway
+        out, mean, invstd = torch.native_batch_norm(
+            x.float(), self.weight, self.bias, None, None, True, self.momentum, self.eps
         )
+        with torch.no_grad():
+            self.num_batches_tracked += 1
+            self.running_mean.lerp_(mean, self.momentum)
+            self.running_var.lerp_(invstd.pow(-2).sub_(self.eps), self.momentum)
+        return out
 
 
 class GroupNorm(nn.GroupNorm):

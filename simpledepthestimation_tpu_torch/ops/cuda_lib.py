@@ -105,6 +105,12 @@ def _declare(lib: ctypes.CDLL) -> None:
     # int sde_photometric_map_fwd(a, b, out, B, C, H, W, alpha, C1, C2, is_bf16, stream)
     lib.sde_photometric_map_fwd.argtypes = [p, p, p, i, i, i, i, f, f, f, i, p]
     lib.sde_photometric_map_fwd.restype = i
+    # int sde_warp_bilinear_bwd_coords(img, x, y, ct, dx, dy, B, C, Hi, Wi, Ho, Wo, is_bf16, stream)
+    lib.sde_warp_bilinear_bwd_coords.argtypes = [p, p, p, p, p, p, i, i, i, i, i, i, i, p]
+    lib.sde_warp_bilinear_bwd_coords.restype = i
+    # int sde_photometric_map_bwd(a, b, g, g_a, g_b, B, C, H, W, alpha, C1, C2, is_bf16, stream)
+    lib.sde_photometric_map_bwd.argtypes = [p, p, p, p, p, i, i, i, i, f, f, f, i, p]
+    lib.sde_photometric_map_bwd.restype = i
     lib.sde_error_string.argtypes = [i]
     lib.sde_error_string.restype = ctypes.c_char_p
 

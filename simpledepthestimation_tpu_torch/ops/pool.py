@@ -19,6 +19,23 @@ def avg_pool_3x3_reflect(x: torch.Tensor) -> torch.Tensor:
     return F.avg_pool2d(reflect_pad_hw(x, 1), 3, stride=1)
 
 
+def pool9_adjoint(u: torch.Tensor) -> torch.Tensor:
+    """Adjoint of :func:`avg_pool_3x3_reflect` on ``[..., H, W]`` (H, W ≥ 2):
+    the zero-padded 3×3 mean of the cotangent gives the cotangent of the
+    reflect-padded array; the padding's adjoint then folds its border rows and
+    columns back onto rows/columns 1 and H−2 / W−2 (which coincide at size 3)."""
+    H, W = u.shape[-2:]
+    lead = u.shape[:-2]
+    padded = F.avg_pool2d(F.pad(u.reshape(-1, 1, H, W), (2, 2, 2, 2)), 3, stride=1)  # [.,1,H+2,W+2]
+    body = padded[..., 1:W + 1].clone()
+    body[..., 1] += padded[..., 0]
+    body[..., W - 2] += padded[..., W + 1]
+    out = body[..., 1:H + 1, :].clone()
+    out[..., 1, :] += body[..., 0, :]
+    out[..., H - 2, :] += body[..., H + 1, :]
+    return out.reshape(*lead, H, W)
+
+
 def avg_pool_3x3_same(x: torch.Tensor) -> torch.Tensor:
     """AvgPool(3, stride 1, zero pad 1); the divisor counts the zero padding."""
     return F.avg_pool2d(x, 3, stride=1, padding=1, count_include_pad=True)

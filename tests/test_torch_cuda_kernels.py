@@ -7,15 +7,22 @@ at run time). Run them on the GPU machine with
     python -m pytest tests/test_torch_cuda_kernels.py -m cuda -p no:cacheprovider
 
 float32 tolerance 1e-5: same formula as the plain version, other summation
-order. (``python3 chip_smoke.py`` makes the same comparison at the main
-path's shapes.)"""
+order. The backward kernels are held relative to the largest value of the
+plain version's result: 1e-5 for the warp's coordinate cotangents, 1e-4 for the
+photometric VJP (its variance terms cancel before they are divided by
+denominators down to C2). (``python3 chip_smoke.py`` makes the same comparisons
+at the main path's shapes.)"""
 
 import numpy as np
 import pytest
 import torch
 
-from simpledepthestimation_tpu_torch.ops.photometric import photometric_map, photometric_map_plain
-from simpledepthestimation_tpu_torch.ops.warp import warp_bilinear, warp_bilinear_plain
+from simpledepthestimation_tpu_torch.ops.photometric import (
+    photometric_map, photometric_map_plain, photometric_vjp, photometric_vjp_plain,
+)
+from simpledepthestimation_tpu_torch.ops.warp import (
+    warp_bilinear, warp_bilinear_plain, warp_coord_grad, warp_coord_grad_plain,
+)
 
 pytestmark = pytest.mark.cuda
 
@@ -57,20 +64,80 @@ def test_photometric_kernel_matches_plain(shape, card, rng):
     assert (out - photometric_map_plain(a, b, 0.85, 1e-4, 9e-4)).abs().max().item() <= 1e-5
 
 
+@pytest.mark.parametrize("shape,out_hw", [((2, 3, 37, 83), (37, 83)), ((1, 1, 8, 8), (8, 8)),
+                                          ((2, 5, 37, 83), (21, 45)), ((3, 3, 64, 640), (64, 640))])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_warp_backward_kernel_matches_plain(shape, out_hw, dtype, card, rng):
+    B, C, H, W = shape
+    h, w = out_hw
+    img = _rand(rng, *shape).to(card).to(dtype)
+    x = ((_rand(rng, B, h, w) * 3 - 1) * W).to(card)
+    y = ((_rand(rng, B, h, w) * 3 - 1) * H).to(card)
+    ct = (_rand(rng, B, C, h, w) - 0.5).to(card).to(dtype)
+    before = warp_bilinear.bwd_launches
+    dx, dy = warp_coord_grad(img, x, y, ct)
+    torch.cuda.synchronize()
+    assert warp_bilinear.bwd_launches == before + 1
+    rx, ry = warp_coord_grad_plain(img, x, y, ct)
+    scale = max(rx.abs().max().item(), ry.abs().max().item())
+    assert (dx - rx).abs().max().item() <= 1e-5 * scale and (dy - ry).abs().max().item() <= 1e-5 * scale
+    # through the autograd Function, with an expanded cotangent; deterministic
+    xg = x.clone().requires_grad_()
+    warp_bilinear(img, xg, y).sum().backward()
+    again = xg.grad.clone()
+    xg.grad = None
+    warp_bilinear(img, xg, y).sum().backward()
+    assert torch.equal(xg.grad, again)
+    want, _ = warp_coord_grad_plain(img, x, y, torch.ones(B, C, h, w, device=card, dtype=dtype))
+    assert (xg.grad - want).abs().max().item() <= 1e-5 * max(want.abs().max().item(), 1e-30)
+
+
+@pytest.mark.parametrize("shape", [(2, 3, 37, 83), (1, 2, 2, 2), (1, 1, 2, 5), (2, 3, 3, 3), (2, 3, 192, 640)])
+@pytest.mark.parametrize("both", [False, True], ids=["g_a", "g_a-g_b"])
+def test_photometric_backward_kernel_matches_plain(shape, both, card, rng):
+    a = _rand(rng, *shape).to(card)
+    b = (0.8 * a + 0.2 * _rand(rng, *shape).to(card))
+    g = _rand(rng, shape[0], 1, *shape[2:]).to(card)
+    before = photometric_map.bwd_launches
+    got = photometric_vjp(a, b, g, 0.85, 1e-4, 9e-4, need_a=True, need_b=both)
+    torch.cuda.synchronize()
+    assert photometric_map.bwd_launches == before + 1
+    assert (got[1] is not None) == both
+    want = photometric_vjp_plain(a, b, g, 0.85, 1e-4, 9e-4)
+    for k, r in zip(got, want):
+        if k is not None:
+            assert (k - r).abs().max().item() <= 1e-4 * r.abs().max().item()
+    # through the autograd Function: b needs no gradient and gets none
+    ag = a.clone().requires_grad_()
+    photometric_map(ag, b, 0.85, 1e-4, 9e-4).backward(g)
+    assert torch.equal(ag.grad, got[0])
+    # ties: a == b gives exactly zero
+    ga, gb = photometric_vjp(a, a.clone(), g, 0.85, 1e-4, 9e-4)
+    assert torch.count_nonzero(ga) == 0 and torch.count_nonzero(gb) == 0
+
+
 def test_cuda_wrappers_raise_instead_of_falling_back(card, rng):
     img = _rand(rng, 1, 3, 8, 8).to(card)
     x, y = _rand(rng, 1, 8, 8).to(card), _rand(rng, 1, 8, 8).to(card)
-    with pytest.raises(NotImplementedError, match="training slice"):
-        warp_bilinear(img, x.requires_grad_(), y)
-    with pytest.raises(NotImplementedError, match="training slice"):
-        photometric_map(img.clone().requires_grad_(), img)
+    # coordinates and both photometric inputs are differentiable on the card ...
+    counts = (warp_bilinear.bwd_launches, photometric_map.bwd_launches)
+    xg = x.clone().requires_grad_()
+    ag = img.clone().requires_grad_()
+    (photometric_map(warp_bilinear(img, xg, y), ag).sum()).backward()
+    assert xg.grad is not None and ag.grad is not None
+    assert (warp_bilinear.bwd_launches, photometric_map.bwd_launches) == (counts[0] + 1, counts[1] + 1)
+    # ... the image is not yet: no quiet scatter in plain PyTorch
+    with pytest.raises(NotImplementedError, match="MotionLearning slice"):
+        warp_bilinear(img.clone().requires_grad_(), x, y)
     with torch.no_grad():  # no gradient asked for: the kernel runs
-        warp_bilinear(img, x, y)
+        warp_bilinear(img.clone().requires_grad_(), x, y)
     with pytest.raises(ValueError, match="contiguous"):
-        warp_bilinear(img.transpose(2, 3), x.detach(), y)
+        warp_bilinear(img.transpose(2, 3), x, y)
     with pytest.raises(TypeError):
-        warp_bilinear(img.half(), x.detach(), y)
+        warp_bilinear(img.half(), x, y)
     with pytest.raises(TypeError):
         photometric_map(img, img.bfloat16())
+    with pytest.raises(TypeError, match="dtype"):
+        warp_coord_grad(img, x, y, torch.zeros(1, 3, 8, 8, device=card, dtype=torch.bfloat16))
     with pytest.raises(ValueError, match="one device"):
-        warp_bilinear(img, x.detach().cpu(), y.cpu())
+        warp_bilinear(img, x.cpu(), y.cpu())

@@ -26,7 +26,9 @@ def _module_names():
 
 def test_every_module_imports_without_jax():
     names = _module_names()
-    assert len(names) >= 20
+    assert len(names) >= 24
+    assert {"simpledepthestimation_tpu_torch.solver.build",
+            "simpledepthestimation_tpu_torch.parallel.train_step"} <= set(names)
     code = (
         "import importlib, sys\n"
         f"names = {names!r}\n"
@@ -131,7 +133,13 @@ def test_kernel_wrappers_reject_unsupported_inputs():
     with pytest.raises(ValueError, match="H, W >= 2"):
         photometric_map(torch.zeros(1, 3, 1, 8), torch.zeros(1, 3, 1, 8))
     # the launch counts move only where a kernel is launched: never on the CPU
-    before = (warp_bilinear.launches, photometric_map.launches)
-    warp_bilinear(img, torch.zeros(2, 4, 5), torch.zeros(2, 4, 5))
-    photometric_map(img, img)
-    assert (warp_bilinear.launches, photometric_map.launches) == before
+    def counts():
+        return (warp_bilinear.launches, photometric_map.launches,
+                warp_bilinear.bwd_launches, photometric_map.bwd_launches)
+
+    before = counts()
+    x = torch.zeros(2, 4, 5, requires_grad=True)
+    a = img.clone().requires_grad_()
+    (warp_bilinear(img, x, torch.zeros(2, 4, 5)).sum() + photometric_map(a, img).sum()).backward()
+    assert x.grad is not None and a.grad is not None
+    assert counts() == before

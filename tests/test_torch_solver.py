@@ -1,0 +1,178 @@
+"""The port's optimizers and schedules vs the JAX package's (optax) on the CPU.
+
+Schedules: the port evaluates them in Python floats, the JAX package in
+float32: 1e-6 relative. Updates: three steps of each recipe on a small seeded
+parameter tree with seeded gradients, against ``optax`` through the JAX
+package's ``build_optimizer``: 1e-6 absolute on parameters of order 1 (float32
+on both sides, the same formula).
+"""
+
+import numpy as np
+import pytest
+import torch
+import torch.nn as nn
+
+import jax
+import jax.numpy as jnp
+import optax
+
+from simpledepthestimation_tpu.solver import build as jsolver
+from simpledepthestimation_tpu_torch.solver import (
+    ScheduledLR, build_optimizer, multistep_lr_schedule, param_groups_by_name, poly_lr_schedule,
+)
+
+from torch_port_helpers import monodepth2_cfgs
+
+
+def _cfgs(overrides):
+    return monodepth2_cfgs(list(overrides))
+
+
+class _Tiny(nn.Module):
+    """Parameter names that exercise the grouping rules: an encoder and a
+    decoder under ``depth_net``, and a ``pose_net``."""
+
+    def __init__(self, rng):
+        super().__init__()
+        self.depth_net = nn.ModuleDict({
+            "encoder": nn.Linear(4, 3), "decoder": nn.Linear(3, 2),
+        })
+        self.pose_net = nn.Linear(5, 2)
+        with torch.no_grad():
+            for p in self.parameters():
+                p.copy_(torch.from_numpy(rng.randn(*p.shape).astype(np.float32)))
+
+
+def _as_tree(model):
+    """The module's parameters as the nested dict the JAX label functions walk."""
+    tree = {}
+    for name, p in model.named_parameters():
+        node = tree
+        *parents, leaf = name.split(".")
+        for part in parents:
+            node = node.setdefault(part, {})
+        node[leaf] = jnp.asarray(p.detach().numpy())
+    return tree
+
+
+def _leaf(tree, name):
+    for part in name.split("."):
+        tree = tree[part]
+    return np.asarray(tree)
+
+
+MILESTONES = [6, 15]
+
+
+@pytest.mark.parametrize("step", [0, 1, 5, 6, 7, 14, 15, 16, 40])
+def test_multistep_schedule_matches_jax(step):
+    ref = jsolver.multistep_lr_schedule(2e-4, MILESTONES, 0.1)(step)
+    got = multistep_lr_schedule(2e-4, MILESTONES, 0.1)(step)
+    np.testing.assert_allclose(got, float(ref), rtol=1e-6)
+
+
+@pytest.mark.parametrize("step", [0, 1, 17, 49, 50, 51, 99, 100, 101, 1000])
+def test_poly_schedule_matches_jax(step):
+    ref = jsolver.poly_lr_schedule(1e-4, 1e-5, 100)(step)
+    got = poly_lr_schedule(1e-4, 1e-5, 100)(step)
+    np.testing.assert_allclose(got, float(ref), rtol=1e-6)
+    assert poly_lr_schedule(1e-4, 1e-5, 100)(100) == pytest.approx(1e-5)
+
+
+def test_group_membership(rng):
+    model = _Tiny(rng)
+    by_id = {id(p): n for n, p in model.named_parameters()}
+    groups = param_groups_by_name(model, {"pose": ["pose_net"]}, default="depth")
+    assert list(groups) == ["pose", "depth"]
+    assert {by_id[id(p)] for p in groups["pose"]} == {"pose_net.weight", "pose_net.bias"}
+    assert all(by_id[id(p)].startswith("depth_net.") for p in groups["depth"]) and len(groups["depth"]) == 4
+    groups = param_groups_by_name(model, {"encoder": ["encoder"]}, default="decoder")
+    assert {by_id[id(p)] for p in groups["encoder"]} == {"depth_net.encoder.weight", "depth_net.encoder.bias"}
+    assert len(groups["decoder"]) == 4  # the decoder and the pose net: everything else
+    # a frozen parameter belongs to no group
+    model.pose_net.bias.requires_grad_(False)
+    assert len(param_groups_by_name(model, {"pose": ["pose_net"]}, default="depth")["pose"]) == 1
+
+    _, cfg = _cfgs(["SOLVER.DEPTH_LR", "3e-4", "SOLVER.POSE_LR", "1e-4"])
+    model = _Tiny(rng)
+    opt, sched = build_optimizer(cfg, model, steps_per_epoch=2)
+    assert isinstance(opt, torch.optim.Adam) and not isinstance(opt, torch.optim.AdamW)
+    assert [(g["name"], g["lr"], len(g["params"])) for g in opt.param_groups] == [("depth", 3e-4, 4), ("pose", 1e-4, 2)]
+    assert opt.defaults["eps"] == 1e-8 and sched.get_last_lr() == [3e-4, 1e-4]
+
+    _, cfg = _cfgs(["SOLVER.OPT", "adamw_poly", "SOLVER.WEIGHT_DECAY", "0.02"])
+    opt, _ = build_optimizer(cfg, model, steps_per_epoch=2)
+    assert isinstance(opt, torch.optim.AdamW) and opt.defaults["eps"] == 1e-6
+    assert [(g["name"], g["weight_decay"], len(g["params"])) for g in opt.param_groups] == [
+        ("encoder", 0.02, 2), ("decoder", 0.0, 4)]
+
+
+def test_unknown_recipe_raises_and_end_lr_alias(rng):
+    model = _Tiny(rng)
+    _, cfg = _cfgs(["SOLVER.OPT", "sgd"])
+    with pytest.raises(ValueError, match="Unknown SOLVER.OPT"):
+        build_optimizer(cfg, model, 1)
+    for key in ("DEPTH_END_LR", "END_LR"):
+        _, cfg = _cfgs(["SOLVER.OPT", "adamw_poly", "SOLVER.DEPTH_LR", "1e-3", "SOLVER.MAX_EPOCHS", "1"])
+        cfg.SOLVER[key] = 5e-4
+        opt, sched = build_optimizer(cfg, model, steps_per_epoch=10)
+        for _ in range(10):
+            sched.step()
+        assert sched.get_last_lr() == pytest.approx([5e-4, 5e-4])
+    with pytest.raises(ValueError, match="schedules"):
+        ScheduledLR(opt, [lambda s: 1.0])
+
+
+def test_scheduled_lr_counts_steps_and_restores(rng):
+    model = _Tiny(rng)
+    _, cfg = _cfgs(["SOLVER.LR_STEPS", "(1, 2)", "SOLVER.DEPTH_LR", "1e-3", "SOLVER.POSE_LR", "1e-4"])
+    opt, sched = build_optimizer(cfg, model, steps_per_epoch=3)
+    seen = []
+    for _ in range(7):
+        seen.append(sched.get_last_lr()[0])
+        sched.step()
+    np.testing.assert_allclose(seen, [1e-3] * 3 + [1e-4] * 3 + [1e-5], rtol=1e-12)
+    state = sched.state_dict()
+    opt2, sched2 = build_optimizer(cfg, model, steps_per_epoch=3)
+    sched2.load_state_dict(state)
+    assert sched2.last_step == 7 and sched2.get_last_lr() == sched.get_last_lr()
+    assert [g["lr"] for g in opt2.param_groups] == pytest.approx([1e-5, 1e-6])
+
+
+RECIPES = {
+    "adam_multistep": ["SOLVER.LR_STEPS", "(1,)", "SOLVER.DEPTH_LR", "1e-2", "SOLVER.POSE_LR", "3e-3"],
+    "adamw_poly": ["SOLVER.OPT", "adamw_poly", "SOLVER.DEPTH_LR", "1e-2", "SOLVER.WEIGHT_DECAY", "0.1",
+                   "SOLVER.MAX_EPOCHS", "2"],
+}
+
+
+@pytest.mark.parametrize("recipe", sorted(RECIPES))
+def test_three_updates_match_optax(recipe, rng):
+    """steps_per_epoch = 2, so adam_multistep's rate drops before the third
+    update and the poly rate decays at each: the schedule's phase (the rate read
+    at the count before the update) is part of what is compared."""
+    cfg_j, cfg_t = _cfgs(RECIPES[recipe])
+    model = _Tiny(rng)
+    params = _as_tree(model)
+    tx, _ = jsolver.build_optimizer(cfg_j, 2)
+    opt_state = tx.init(params)
+    opt, sched = build_optimizer(cfg_t, model, 2)
+    names = [n for n, _ in model.named_parameters()]
+    for _ in range(3):
+        grads = {n: rng.randn(*p.shape).astype(np.float32) for n, p in model.named_parameters()}
+        g_tree = jax.tree_util.tree_map(jnp.zeros_like, params)
+        for n in names:
+            node = g_tree
+            *parents, leaf = n.split(".")
+            for part in parents:
+                node = node[part]
+            node[leaf] = jnp.asarray(grads[n])
+        updates, opt_state = tx.update(g_tree, opt_state, params)
+        params = optax.apply_updates(params, updates)
+
+        for n, p in model.named_parameters():
+            p.grad = torch.from_numpy(grads[n].copy())
+        opt.step()
+        sched.step()
+        for n, p in model.named_parameters():
+            np.testing.assert_allclose(p.detach().numpy(), _leaf(params, n), atol=1e-6, rtol=0, err_msg=n)

@@ -53,11 +53,36 @@ def monodepth2_cfgs(overrides=()):
     return tuple(out)
 
 
-def make_batch(seed=0, B=2, H=64, W=256, N=2, with_depth=False, flip=None):
-    """A MonoDepth2 training batch as numpy NHWC arrays (the JAX layout)."""
+def smooth_field(rng, B, H, W, C, cell=8):
+    """Low-frequency random images in [0,1): a coarse random grid, one value
+    per ``cell`` pixels, interpolated bilinearly. [B,H,W,C] float32."""
+    low = rng.rand(B, H // cell + 2, W // cell + 2, C)
+    ys, xs = np.arange(H) / cell, np.arange(W) / cell
+    y0, x0 = ys.astype(int), xs.astype(int)
+    fy, fx = (ys - y0)[None, :, None, None], (xs - x0)[None, None, :, None]
+    rows0, rows1 = low[:, y0], low[:, y0 + 1]
+    top = rows0[:, :, x0] * (1 - fx) + rows0[:, :, x0 + 1] * fx
+    bot = rows1[:, :, x0] * (1 - fx) + rows1[:, :, x0 + 1] * fx
+    return (top * (1 - fy) + bot * fy).astype(np.float32)
+
+
+def make_batch(seed=0, B=2, H=64, W=256, N=2, with_depth=False, flip=None, smooth=False):
+    """A MonoDepth2 training batch as numpy NHWC arrays (the JAX layout).
+
+    ``smooth=False``: white-noise frames, on which the identity reprojection
+    beats every warp, so the automask cuts the warp (and the pose net) off from
+    the loss. ``smooth=True``: low-frequency frames whose contexts are the
+    target shifted sideways by a few pixels plus a little noise, so that warped
+    and identity maps each win the minimum somewhere: the batch for gradients."""
     rng = np.random.RandomState(seed)
-    img = rng.rand(B, H, W, 3).astype(np.float32)
-    ctx = (0.7 * img[:, None] + 0.3 * rng.rand(B, N, H, W, 3)).astype(np.float32)
+    if smooth:
+        img = smooth_field(rng, B, H, W, 3)
+        shifts = [(-1) ** j * (2 + j // 2) for j in range(N)]
+        ctx = np.stack([np.roll(img, s, axis=2) for s in shifts], axis=1)
+        ctx = (ctx + 0.01 * rng.rand(B, N, H, W, 3)).astype(np.float32)
+    else:
+        img = rng.rand(B, H, W, 3).astype(np.float32)
+        ctx = (0.7 * img[:, None] + 0.3 * rng.rand(B, N, H, W, 3)).astype(np.float32)
     K = np.tile(
         np.array([[[0.58 * W, 0, W / 2], [0, 1.92 * H, H / 2], [0, 0, 1]]], np.float32), (B, 1, 1)
     )
