@@ -7,18 +7,19 @@ Run from the root of a checkout, on a machine with one NVIDIA Hopper card:
 
 It builds the CUDA kernels under ``simpledepthestimation_tpu_torch/csrc`` from
 source (nvcc, sm_90a), holds each against its plain PyTorch version on the
-card, drives the port's main paths at B=16, 192x640, N=2 with bfloat16
-convolutions (MonoDepth2-R18 forward: depth prediction and the validation-loss
-pass; and the train step: loss, backward through the kernels, Adam with
-depth/pose groups and the per-step schedule) and compares forward, gradients
-and one update with a CPU copy of the model at a small shape. Every phase
+card, drives the port's main paths with bfloat16 convolutions (MonoDepth2-R18
+at B=16, 192x640, N=2: depth prediction, the validation-loss pass and the train
+step; MotionLearning-R18 at B=16, 128x416: the train step with the noise ramp
+and the motion burn-in at their ends) and compares forward, gradients and one
+update of each model with a CPU copy at a small shape. Every phase
 prints one JSON line; a failed phase raises, so the exit code is non-zero and
 the closing line is not printed. Without a CUDA device it exits non-zero at
 once: nothing here falls back to the CPU.
 
-Phases: device, build, kernels, main_path, train_path, cpu_agreement (and, with
-``--profile``, a torch.profiler breakdown of the forward calls and of the train
-step by kernel). Then one line ``{"kernels": [...]}`` with one entry per kernel
+Phases: device, build, kernels, main_path, train_path, motion_train_path,
+cpu_agreement, cpu_agreement_train_step, cpu_agreement_motion_train_step (and,
+with ``--profile``, a torch.profiler breakdown of the forward calls and of both
+train steps by kernel). Then one line ``{"kernels": [...]}`` with one entry per kernel
 at the main path's largest shape, the card's name and power limit as nvidia-smi
 prints them, and the closing line ``{"ok": true, "device": {...}}``.
 
@@ -54,6 +55,11 @@ AGREE_RTOL = 1e-4  # card (kernels, cuDNN float32) vs CPU (plain versions) on on
 # inputs' bfloat16, one ulp = 2^-7 of the value.
 BWD_RTOL = 1e-5
 VJP_RTOL = 1e-4
+# K5 adds with float32 atomics in an order that changes from run to run, and a pixel that many
+# output pixels land on (an image corner under clamped coordinates: thousands) sums that many
+# terms: the JAX package's limit for its own kernel (atol 2e-5, rtol 1e-5), with the relative
+# part taken of the sum of the terms' sizes, since signed cotangents cancel in the sum
+K5_ATOL, K5_RTOL = 2e-5, 1e-5
 BF16_VJP_RTOL = 2.0**-7
 # Parameter gradients, card vs CPU, per tensor relative to its largest entry: a whole backward
 # pass in another order, and a bias or norm gradient is a sum of thousands of signed terms that
@@ -61,6 +67,7 @@ BF16_VJP_RTOL = 2.0**-7
 GRAD_AGREE_RTOL = 5e-3
 GRAD_NORM_RTOL = 1e-4
 TRAIN_FIXED_STEPS, TRAIN_FRESH_STEPS = 8, 3
+TIMED_STEPS = 10  # steady state: train steps back to back, one wait at the end
 
 # The pose net's first convolution has 16 channels and feeds a GroupNorm of 16 groups, which
 # subtracts each channel's mean: the bias's gradient is zero but for rounding, and may be 0.0.
@@ -68,6 +75,8 @@ ZERO_GRADIENT_BY_CONSTRUCTION = {"pose_net.conv1.0.bias"}
 
 PLANES = [(192, 640), (96, 320), (48, 160), (24, 80)]
 SMOKE_B, SMOKE_N = 16, 2
+MOTION_HW = (128, 416)  # projects/MotionLearning/configs/Base.yaml: Resize IMG_H, IMG_W
+MONODEPTH2_KERNELS = ("warp_bilinear_fwd", "photometric_map_fwd", "warp_bilinear_bwd_coords", "photometric_map_bwd")
 
 
 def emit(obj) -> None:
@@ -115,6 +124,12 @@ def photo_bound(B, C, H, W, elem_bytes):
 def warp_bwd_bound(B, C, h, w, elem_bytes):
     nbytes = B * h * w * (8 + 8 + 2 * elem_bytes * C)  # x, y in; dx, dy out; image and ct per channel
     flops = B * h * w * (10 + 17 * C)
+    return _bound(nbytes, flops)
+
+
+def warp_bwd_image_bound(B, C, h, w, Hi, Wi, elem_bytes):
+    nbytes = B * h * w * (8 + elem_bytes * C) + B * C * Hi * Wi * 4  # x, y, ct in; float32 d_img out
+    flops = B * h * w * (10 + 8 * C)
     return _bound(nbytes, flops)
 
 
@@ -304,6 +319,53 @@ def _check_warp_bwd(image, x, y, ct, tol, label, timed: bool):
     return rec
 
 
+def _check_warp_bwd_image(x, y, ct, Hi, Wi, label, timed: bool):
+    """K5 through the autograd Function (forward kernel, then the image
+    backward kernel, coordinates detached) against the plain version, to
+    ``atol + rtol·|ref|`` per value; timed through its wrapper alone."""
+    import torch
+
+    from simpledepthestimation_tpu_torch.ops.warp import warp_bilinear, warp_image_grad, warp_image_grad_plain
+
+    before = warp_bilinear.bwd_image_launches
+    B, C, h, w = ct.shape
+    image = torch.zeros((B, C, Hi, Wi), device=ct.device, dtype=ct.dtype).requires_grad_()
+    (got,) = torch.autograd.grad(warp_bilinear(image, x, y), image, ct)
+    torch.cuda.synchronize()
+    ref = warp_image_grad_plain(x, y, ct.float(), Hi, Wi)
+    # a sum in another order errs in proportion to the sum of its terms' sizes (the
+    # scatter of |ct|), not to the sum itself, which signed terms cancel; the Function
+    # also rounds the float32 result to the image's type once
+    scale = warp_image_grad_plain(x, y, ct.float().abs(), Hi, Wi)
+    excess = ((got.float() - ref).abs() - K5_RTOL * scale).max().item()
+    if ct.dtype == torch.bfloat16:
+        excess = ((got.float() - ref).abs() - K5_RTOL * scale - BF16_WARP_TOL / 2 * ref.abs()).max().item()
+    err = (got.float() - ref).abs().max().item()
+    bound_ms, bound_by = warp_bwd_image_bound(B, C, h, w, Hi, Wi, ct.element_size())
+    on_border = ((x == 0) | (x == Wi - 1) | (y == 0) | (y == Hi - 1)).float().mean().item()
+    rec = {
+        "kernel": "warp_bilinear_bwd_image", "case": label, "shape": [B, C, h, w], "image_hw": [Hi, Wi],
+        "dtype": str(ct.dtype).replace("torch.", ""), "max_abs_err": err, "ref_max": ref.abs().max().item(),
+        "tol": f"{K5_ATOL} + {K5_RTOL}*scatter(|ct|)" + (" + 2^-8*|ref|" if ct.dtype == torch.bfloat16 else ""),
+        "scatter_abs_ct_max": scale.max().item(), "share_on_border": on_border, "bound_ms": bound_ms, "bound_by": bound_by,
+    }
+    if timed:
+        rec["ms"] = cuda_ms(lambda: warp_image_grad(x, y, ct, Hi, Wi))
+        rec["plain_ms"] = cuda_ms(lambda: warp_image_grad_plain(x, y, ct, Hi, Wi), iters=3, warmup=1)
+        # one PyTorch call for the same function: grid_sample's backward with respect to its input
+        grid = torch.stack([2.0 * x / (Wi - 1.0) - 1.0, 2.0 * y / (Hi - 1.0) - 1.0], dim=-1).to(ct.dtype)
+        zeros = torch.zeros((B, C, Hi, Wi), device=ct.device, dtype=ct.dtype)
+        rec["library_ms"] = cuda_ms(lambda: torch.ops.aten.grid_sampler_2d_backward(
+            ct, zeros, grid, 0, 0, True, [True, False]))
+    rec["launches"] = warp_bilinear.bwd_image_launches - before
+    emit(rec)
+    if not (excess <= K5_ATOL):
+        raise AssertionError(f"warp_bilinear_bwd_image disagrees with its plain version: {rec}")
+    if got.shape != (B, C, Hi, Wi) or got.dtype != ct.dtype or not torch.isfinite(got.float()).all():
+        raise AssertionError(f"warp_bilinear_bwd_image gave a wrong shape, dtype or non-finite values: {rec}")
+    return rec
+
+
 def _check_photo_bwd(a, b, g, tol, label, timed: bool, both: bool):
     """K4 through the autograd Function against the plain version, for the
     gradient of ``a`` alone (the main path: ``b`` is the constant target frame)
@@ -351,6 +413,11 @@ def _check_kernel_chain(image, x, y, target, weight):
     from simpledepthestimation_tpu_torch.ops.photometric import photometric_map, photometric_map_plain
     from simpledepthestimation_tpu_torch.ops.warp import warp_bilinear, warp_bilinear_plain
 
+    # the L1 term |a − b| has a kink where the warped frame meets the target; there a
+    # last-bit difference between a kernel and its plain version flips the sign of the
+    # gradient (by 2·(1−α)/C·weight·∂a/∂x), so the target is moved off near-ties
+    target = torch.where((warp_bilinear_plain(image, x, y) - target).abs() < 1e-4, target + 1e-3, target)
+
     def grads(warp, photo):
         xg, yg = x.clone().requires_grad_(), y.clone().requires_grad_()
         loss = (photo(warp(image, xg, yg), target, 0.85, 1e-4, 9e-4) * weight).sum()
@@ -389,6 +456,9 @@ def phase_kernels(device):
 
     def check_photo_bwd(*args, **kw):
         return record(_check_photo_bwd(*args, **kw))
+
+    def check_warp_bwd_image(*args, **kw):
+        return record(_check_warp_bwd_image(*args, **kw))
 
     rng = np.random.RandomState(7)
     flagship = {}
@@ -446,6 +516,39 @@ def phase_kernels(device):
             g = rand(shape[0], 1, 1, 1).expand(shape[0], 1, *shape[2:])  # expanded, as above
             check_photo_bwd(a, b, g, vjp_tol, label + tag, timed=timed, both=True)
 
+    # K5 at the MotionLearning step's shape: the cycle loss warps the [2B,3,H,W] reverse
+    # translation field at the RGB-D warp's coordinates, which view synthesis clamps to the
+    # image, so every pixel that projects out of view lands on the border row or column
+    NM, (mh, mw) = 2 * SMOKE_B, MOTION_HW
+    for dtype, tag in ((torch.float32, ""), (torch.bfloat16, "_bf16")):
+        _, x, y = synthesis_coords(23, NM, mh, mw, device)
+        ct = (rand(NM, 3, mh, mw) - 0.5).to(dtype)
+        rec = check_warp_bwd_image(x, y, ct, mh, mw, "view_synthesis" + tag, timed=True)
+        if dtype == torch.float32:
+            flagship["warp_bwd_image"] = rec
+        xu = (rand(NM, mh, mw) * 3.0 - 1.0) * mw
+        yu = (rand(NM, mh, mw) * 3.0 - 1.0) * mh
+        check_warp_bwd_image(xu, yu, ct, mh, mw, "uniform_3x_plane" + tag, timed=True)
+        # the same, clamped as view synthesis clamps: 8/9 of the pixels on the border
+        check_warp_bwd_image(xu.clamp(0, mw - 1.0).contiguous(), yu.clamp(0, mh - 1.0).contiguous(), ct, mh, mw,
+                             "border_clamped" + tag, timed=True)
+        for (Hi, Wi), (oh, ow), label in (((44, 300), (52, 300), "unaligned_other_image_height"),
+                                          ((37, 83), (21, 45), "unaligned_other_output_size")):
+            x, y = rand(2, oh, ow) * (Wi + 6) - 3, rand(2, oh, ow) * (Hi + 6) - 3
+            check_warp_bwd_image(x, y, (rand(2, 3, oh, ow) - 0.5).to(dtype), Hi, Wi, label + tag, timed=False)
+
+    # K1 and K3 at the MotionLearning step's shapes: the RGB-D warp of frame and depth
+    # ([2B,4,H,W], depth in metres) and the cycle loss's warp of the [2B,3,H,W] reverse
+    # translation field at the same coordinates. The warp's limit is one rounding of the
+    # result, so it scales with the largest value (the depth's)
+    for dtype, warp_tol, tag in ((torch.float32, F32_TOL, ""), (torch.bfloat16, BF16_WARP_TOL, "_bf16")):
+        image, x, y = synthesis_coords(29, NM, mh, mw, device)
+        rgbd = torch.cat([image, 0.5 + 30.0 * rand(NM, 1, mh, mw)], dim=1).to(dtype)
+        rgbd_tol = warp_tol * max(1.0, rgbd.float().abs().max().item())
+        check_warp(rgbd, x, y, rgbd_tol, "motion_rgbd" + tag, timed=True)
+        check_warp_bwd(rgbd, x, y, (rand(NM, 4, mh, mw) - 0.5).to(dtype), BWD_RTOL, "motion_rgbd" + tag, timed=True)
+        check_warp(image.to(dtype), x, y, warp_tol, "motion_cycle" + tag, timed=True)
+
     # all four kernels in a row, at the second plane
     h, w = PLANES[1]
     image, x, y = synthesis_coords(5, 4, h, w, device)
@@ -470,7 +573,7 @@ def reset_launch_counts() -> None:
     from simpledepthestimation_tpu_torch.ops.photometric import photometric_map
     from simpledepthestimation_tpu_torch.ops.warp import warp_bilinear
 
-    warp_bilinear.launches = warp_bilinear.bwd_launches = 0
+    warp_bilinear.launches = warp_bilinear.bwd_launches = warp_bilinear.bwd_image_launches = 0
     photometric_map.launches = photometric_map.bwd_launches = 0
 
 
@@ -481,6 +584,7 @@ def read_launch_counts() -> dict:
     return {
         "warp_bilinear_fwd": warp_bilinear.launches, "photometric_map_fwd": photometric_map.launches,
         "warp_bilinear_bwd_coords": warp_bilinear.bwd_launches, "photometric_map_bwd": photometric_map.bwd_launches,
+        "warp_bilinear_bwd_image": warp_bilinear.bwd_image_launches,
     }
 
 
@@ -533,7 +637,7 @@ def phase_main_path(device):
             raise AssertionError(f"loss dict is wrong or not finite: {vals}")
         steps.append({"depth_min": lo, "depth_max": hi, "eval_ms": eval_ms, "loss_pass_ms": train_ms, **vals})
     launches = read_launch_counts()
-    if launches["warp_bilinear_bwd_coords"] or launches["photometric_map_bwd"]:
+    if launches["warp_bilinear_bwd_coords"] or launches["photometric_map_bwd"] or launches["warp_bilinear_bwd_image"]:
         raise AssertionError(f"a forward under no_grad launched a backward kernel: {launches}")
     emit({
         "phase": "main_path", "model": "MonoDepth2-R18", "batch": B, "hw": [H, W], "contexts": N,
@@ -541,6 +645,69 @@ def phase_main_path(device):
         "peak_mem_bytes": torch.cuda.max_memory_allocated(),
     })
     return launches
+
+
+def _drive_train_step(state, step, batches, timed_batches, expected, metric_keys, nonzero_grads=None,
+                      exempt=frozenset()):
+    """Drive ``step`` once per batch of ``batches``, each step timed alone on CUDA
+    events, then ``TIMED_STEPS`` steps back to back over ``timed_batches``, the way a
+    training loop runs them, with one wait at the end.
+
+    Checked: each step's kernel launches (``expected``: name -> (least, most)),
+    metrics that are 0-d tensors on the card with the keys ``metric_keys``, finite,
+    with a positive ``grad_norm``; after the first step a finite gradient for every
+    parameter, non-zero for ``nonzero_grads`` (None: every parameter but
+    ``exempt``); and every parameter but ``exempt`` moved. Returns the per-step
+    records, the launches of the checked steps and the steady ms per step."""
+    import torch
+
+    before = {k: p.detach().clone() for k, p in state.model.named_parameters()}
+    reset_launch_counts()
+    records, metrics_dev = [], []
+    for i, batch in enumerate(batches):
+        counts = read_launch_counts()
+        start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        t0 = time.perf_counter()
+        start.record()
+        metrics = step(batch)
+        stop.record()
+        enqueue_ms = (time.perf_counter() - t0) * 1e3  # the step returns without waiting for the card
+        torch.cuda.synchronize()
+        per_step = {k: v - counts[k] for k, v in read_launch_counts().items()}
+        if any(not lo <= per_step[k] <= hi for k, (lo, hi) in expected.items()):
+            raise AssertionError(f"train step {i} launched {per_step}, expected (least, most) {expected}")
+        if not all(isinstance(v, torch.Tensor) and v.device.type == "cuda" and v.dim() == 0 for v in metrics.values()):
+            raise AssertionError("the step's metrics are not 0-d tensors on the card")
+        if i == 0:
+            grads = {k: p.grad for k, p in state.model.named_parameters()}
+            bad = [k for k, g in grads.items() if g is None or not torch.isfinite(g).all()]
+            if bad:
+                raise AssertionError(f"{len(bad)} gradients missing or not finite, e.g. {bad[:5]}")
+            names = [k for k in grads if k not in exempt] if nonzero_grads is None else nonzero_grads
+            zero = [k for k in names if not bool((grads[k] != 0).any())]
+            if zero:
+                raise AssertionError(f"{len(zero)} parameters received a zero gradient, e.g. {zero[:5]}")
+        metrics_dev.append(metrics)
+        records.append({"step_ms": start.elapsed_time(stop), "enqueue_ms": enqueue_ms})
+    launches = read_launch_counts()
+    for rec, metrics in zip(records, metrics_dev):
+        rec.update({k: v.item() for k, v in metrics.items()})
+        if set(metrics) != set(metric_keys):
+            raise AssertionError(f"unexpected metrics {sorted(metrics)}")
+        if not all(v == v and abs(v) < 1e6 for k, v in rec.items() if isinstance(v, float)):
+            raise AssertionError(f"a metric is not finite: {rec}")
+        if not rec["grad_norm"] > 0:
+            raise AssertionError(f"grad_norm is not positive: {rec}")
+    unchanged = [k for k, p in state.model.named_parameters() if torch.equal(p.detach(), before[k]) and k not in exempt]
+    if unchanged:
+        raise AssertionError(f"{len(unchanged)} parameters did not change, e.g. {unchanged[:5]}")
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i in range(TIMED_STEPS):
+        step(timed_batches[i % len(timed_batches)])
+    torch.cuda.synchronize()
+    return records, launches, (time.perf_counter() - t0) * 1e3 / TIMED_STEPS
 
 
 def phase_train_path(device):
@@ -559,63 +726,23 @@ def phase_train_path(device):
     step = make_train_step(state, grad_clip=float(cfg.SOLVER.GRAD_CLIP))
     fixed = make_batch(300, B, H, W, N, device, smooth=True)
     fresh = [make_batch(301 + i, B, H, W, N, device, smooth=True) for i in range(TRAIN_FRESH_STEPS)]
-    before = {k: p.detach().clone() for k, p in state.model.named_parameters()}
 
-    reset_launch_counts()
-    records, metrics_dev = [], []
-    for i, batch in enumerate([fixed] * TRAIN_FIXED_STEPS + fresh):
-        counts = read_launch_counts()
-        start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        t0 = time.perf_counter()
-        start.record()
-        metrics = step(batch)
-        stop.record()
-        enqueue_ms = (time.perf_counter() - t0) * 1e3  # the step returns without waiting for the card
-        torch.cuda.synchronize()
-        per_step = {k: v - counts[k] for k, v in read_launch_counts().items()}
-        if set(per_step.values()) != {4}:
-            raise AssertionError(f"train step {i} launched {per_step}, expected 4 of each kernel (one per scale)")
-        if not all(isinstance(v, torch.Tensor) and v.device.type == "cuda" and v.dim() == 0 for v in metrics.values()):
-            raise AssertionError("the step's metrics are not 0-d tensors on the card")
-        if i == 0:
-            no_grad = [k for k, p in state.model.named_parameters()
-                       if p.grad is None or not (bool((p.grad != 0).any()) or k in ZERO_GRADIENT_BY_CONSTRUCTION)]
-            if no_grad:
-                raise AssertionError(f"{len(no_grad)} parameters received no gradient, e.g. {no_grad[:5]}")
-        metrics_dev.append(metrics)
-        records.append({"step_ms": start.elapsed_time(stop), "enqueue_ms": enqueue_ms,
-                        "batch": "fixed" if i < TRAIN_FIXED_STEPS else "fresh"})
-    launches = read_launch_counts()
-    for rec, metrics in zip(records, metrics_dev):
-        rec.update({k: v.item() for k, v in metrics.items()})
-        if set(metrics) != {"total_loss", "grad_norm", "rec_loss", "smooth_loss"}:
-            raise AssertionError(f"unexpected metrics {sorted(metrics)}")
-        if not all(v == v and abs(v) < 1e6 for k, v in rec.items() if isinstance(v, float)):
-            raise AssertionError(f"a metric is not finite: {rec}")
-        if not rec["grad_norm"] > 0:
-            raise AssertionError(f"grad_norm is not positive: {rec}")
+    # exactly 4 launches of each of K1-K4 per step (one per scale), no K5
+    expected = {**{k: (4, 4) for k in MONODEPTH2_KERNELS}, "warp_bilinear_bwd_image": (0, 0)}
+    records, launches, steady_ms = _drive_train_step(
+        state, step, [fixed] * TRAIN_FIXED_STEPS + fresh, fresh, expected,
+        {"total_loss", "grad_norm", "rec_loss", "smooth_loss"}, exempt=ZERO_GRADIENT_BY_CONSTRUCTION)
+    for i, rec in enumerate(records):
+        rec["batch"] = "fixed" if i < TRAIN_FIXED_STEPS else "fresh"
     first, last = records[0]["total_loss"], records[TRAIN_FIXED_STEPS - 1]["total_loss"]
     if not last < first:
         raise AssertionError(f"total_loss on the fixed batch did not fall: step 1 {first}, step {TRAIN_FIXED_STEPS} {last}")
-    unchanged = [k for k, p in state.model.named_parameters()
-                 if torch.equal(p.detach(), before[k]) and k not in ZERO_GRADIENT_BY_CONSTRUCTION]
-    if unchanged:
-        raise AssertionError(f"{len(unchanged)} parameters did not change, e.g. {unchanged[:5]}")
-    n_steps = TRAIN_FIXED_STEPS + TRAIN_FRESH_STEPS
+    n_steps = TRAIN_FIXED_STEPS + TRAIN_FRESH_STEPS + TIMED_STEPS
     lrs = state.scheduler.get_last_lr()
     if state.step != n_steps or state.scheduler.last_step != n_steps or lrs != [float(cfg.SOLVER.DEPTH_LR), float(cfg.SOLVER.POSE_LR)]:
         raise AssertionError(f"step count or rate is off: step {state.step}, lr {lrs}")
     if any(p.dtype != torch.float32 for p in state.model.parameters()):
         raise AssertionError("a parameter left float32")
-
-    # steady state, the way a training loop runs it: steps back to back, one wait at the end
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    n_timed = 10
-    for i in range(n_timed):
-        step(fresh[i % len(fresh)])
-    torch.cuda.synchronize()
-    steady_ms = (time.perf_counter() - t0) * 1e3 / n_timed
 
     depth = make_eval_step(state)(fixed)
     lo, hi = depth.min().item(), depth.max().item()
@@ -630,6 +757,144 @@ def phase_train_path(device):
         "depth_after": [lo, hi],
     })
     return launches
+
+
+def motion_cfg(extra=()):
+    from simpledepthestimation_tpu_torch.config import get_cfg
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    cfg = get_cfg()
+    cfg.merge_from_file(os.path.join(root, "projects", "MotionLearning", "configs", "resnet18.yaml"))
+    cfg.merge_from_list(["MODEL.DEPTH_NET.ENCODER_NAME", "18", *extra])
+    return cfg
+
+
+def make_motion_batch(seed: int, B: int, H: int, W: int, device):
+    """A MotionLearning batch (a frame and one context) from a numpy seed, NCHW:
+    smooth frames, the context the frame shifted sideways by two pixels plus a
+    little noise."""
+    import numpy as np
+    import torch
+
+    rng = np.random.RandomState(seed)
+    img = smooth_field(rng, B, H, W)
+    ctx = (np.roll(img, 2, axis=3)[:, None] + 0.01 * rng.rand(B, 1, 3, H, W)).astype(np.float32)
+    K = np.tile(np.array([[[0.58 * W, 0, W / 2], [0, 1.92 * H, H / 2], [0, 0, 1]]], np.float32), (B, 1, 1))
+    batch = {"img": img, "ctx_img": ctx, "intrinsics": K, "flip": rng.rand(B) < 0.5}
+    return {k: torch.from_numpy(np.ascontiguousarray(v)).to(device) for k, v in batch.items()}
+
+
+# the end of the noise ramp and of the motion burn-in: the RandLayerNorm noise, the motion
+# net and the cycle loss all run
+MOTION_SCHEDULE = {"noise_stddev": 0.5, "motion_weight": 1.0}
+MOTION_LOSSES = {"rgb_l1_loss", "ssim_loss", "rot_loss", "trans_loss", "motion_smooth_loss",
+                 "motion_sparsity_loss", "smooth_loss"}
+MOTION_CHECKED_STEPS = 5
+
+
+def phase_motion_train_path(device):
+    """The MotionLearning train step through the port's entry points, full width, on the card."""
+    import torch
+
+    from simpledepthestimation_tpu_torch.parallel import create_train_state, make_eval_step, make_train_step
+
+    cfg = motion_cfg()
+    B, (H, W) = int(cfg.SOLVER.IMS_PER_BATCH), MOTION_HW
+    if B != SMOKE_B:
+        raise AssertionError(f"config gives B={B}; the kernel phase assumed {SMOKE_B}")
+    torch.cuda.reset_peak_memory_stats()
+    state = create_train_state(cfg, generator=torch.Generator().manual_seed(0), steps_per_epoch=4)
+    if next(state.model.parameters()).device.type != "cuda" or state.noise_generator.device.type != "cuda":
+        raise AssertionError("create_train_state did not place the model and its noise generator on the card")
+    step = make_train_step(state, grad_clip=float(cfg.SOLVER.GRAD_CLIP), schedule_fn=lambda i: MOTION_SCHEDULE)
+    batches = [make_motion_batch(400 + i, B, H, W, device) for i in range(MOTION_CHECKED_STEPS)]
+
+    # the RGB-D warp (K1, K3 for its coordinates) and the cycle loss's warp (K1, K5 for its image)
+    expected = {"warp_bilinear_fwd": (2, 1 << 30), "warp_bilinear_bwd_coords": (1, 1),
+                "warp_bilinear_bwd_image": (1, 1)}
+    records, launches, steady_ms = _drive_train_step(
+        state, step, batches, batches, expected, MOTION_LOSSES | {"total_loss", "grad_norm"},
+        nonzero_grads=("depth_net.encoder.encoder.conv1.weight", "pose_net.refiner0.conv3.weight",
+                       "pose_net.trans_scale"))
+
+    depth = make_eval_step(state)(batches[0])
+    lo, hi = depth.min().item(), depth.max().item()
+    if depth.shape != (B, 1, H, W) or not (torch.isfinite(depth).all() and lo > 0.0):
+        raise AssertionError(f"depth_pred after training is off: shape {tuple(depth.shape)}, min {lo}, max {hi}")
+    emit({
+        "phase": "motion_train_path", "model": "MotionLearning-R18 (GoogleResNet-18 randLN + GoogleMotionNet)",
+        "batch": B, "hw": [H, W], "compute_dtype": str(cfg.TPU.COMPUTE_DTYPE), "optimizer": str(cfg.SOLVER.OPT),
+        "schedule": MOTION_SCHEDULE, "steps": records, "launches": launches,
+        "launches_per_step": {k: v // MOTION_CHECKED_STEPS for k, v in launches.items()},
+        "steady_step_ms": steady_ms, "steady_pairs_per_s": B / steady_ms * 1e3,
+        "peak_mem_bytes": torch.cuda.max_memory_allocated(), "depth_after": [lo, hi],
+    })
+    return launches
+
+
+def _agree_train_step(phase, cfg, batch_cpu, device, grad_clip=0.0, schedule_fn=None):
+    """One float32 train step on the card (kernels, cuDNN without TF32) and on a
+    CPU copy of the same weights (plain versions): every loss, the global
+    gradient norm, each parameter's gradient and the parameters after the update.
+    Returns the launches of the card's step."""
+    import torch
+
+    from simpledepthestimation_tpu_torch.parallel import create_train_state, make_train_step
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    card = create_train_state(cfg, generator=torch.Generator().manual_seed(3), steps_per_epoch=4)
+    cpu = create_train_state(cfg, device="cpu", generator=torch.Generator().manual_seed(4), steps_per_epoch=4)
+    cpu.model.load_state_dict(card.model.state_dict())
+    start = {k: p.detach().cpu().clone() for k, p in card.model.named_parameters()}
+    reset_launch_counts()
+    m_card = {k: v.item() for k, v in make_train_step(card, grad_clip, schedule_fn)(
+        {k: v.to(device) for k, v in batch_cpu.items()}).items()}
+    launched = read_launch_counts()
+    m_cpu = {k: v.item() for k, v in make_train_step(cpu, grad_clip, schedule_fn)(batch_cpu).items()}
+    loss_err = {k: abs(m_card[k] - m_cpu[k]) / max(abs(m_cpu[k]), 1e-30) for k in m_cpu if k != "grad_norm"}
+    norm_err = abs(m_card["grad_norm"] - m_cpu["grad_norm"]) / abs(m_cpu["grad_norm"])
+    g_cpu = {k: p.grad for k, p in cpu.model.named_parameters()}
+    g_card = {k: p.grad.cpu() for k, p in card.model.named_parameters()}
+    # a gradient that is zero but for rounding is held against the largest gradient instead of its own
+    g_max = max(g.abs().max().item() for g in g_cpu.values())
+    grad_err = {k: (g_card[k] - g_cpu[k]).abs().max().item()
+                / max(g_max if k in ZERO_GRADIENT_BY_CONSTRUCTION else g_cpu[k].abs().max().item(), 1e-30)
+                for k in g_cpu}
+    worst = max(grad_err, key=grad_err.get)
+    zero = [k for k, g in g_cpu.items() if k not in ZERO_GRADIENT_BY_CONSTRUCTION and not g.abs().max().item() > 0]
+    # after the update: Adam's first step moves every parameter by the rate times
+    # g/(|g| + eps), so where |g| is rounding noise the two sides may move apart by
+    # up to twice the rate; elsewhere they agree. Held as a norm over all parameters.
+    lr = float(cfg.SOLVER.DEPTH_LR)
+    p_card = torch.cat([p.detach().cpu().flatten() for p in card.model.parameters()]).double()
+    p_cpu = torch.cat([p.detach().flatten() for p in cpu.model.parameters()]).double()
+    p_start = torch.cat([start[k].flatten() for k, _ in card.model.named_parameters()]).double()
+    update_err = ((p_card - p_cpu).norm() / (p_cpu - p_start).norm()).item()
+    max_apart = (p_card - p_cpu).abs().max().item()
+    emit({"phase": phase, "shape": [int(batch_cpu["img"].shape[0]), *batch_cpu["img"].shape[2:]],
+          "loss_rel_err": loss_err, "grad_norm_rel_err": norm_err, "worst_grad": worst,
+          "worst_grad_rel_err": grad_err[worst], "grad_rtol": GRAD_AGREE_RTOL, "zero_grads_cpu": zero,
+          "update_rel_l2_err": update_err, "update_max_apart": max_apart, "lr": lr,
+          "launches_on_card": launched, "metrics_card": m_card, "metrics_cpu": m_cpu})
+    if max(loss_err.values()) > AGREE_RTOL or norm_err > GRAD_NORM_RTOL or grad_err[worst] > GRAD_AGREE_RTOL:
+        raise AssertionError("the card's losses or parameter gradients disagree with the CPU copy of the model")
+    if not m_cpu["grad_norm"] > 0 or zero:
+        raise AssertionError("a gradient of the CPU copy is identically zero: the comparison says nothing")
+    if update_err > 5e-2 or max_apart > 2.5 * lr:
+        raise AssertionError("the parameters after one update disagree with the CPU copy of the model")
+    return launched
+
+
+def phase_cpu_agreement_motion(device):
+    """The MotionLearning train step on the card and on a CPU copy, B=2 64x96,
+    noise 0 (the two devices' generators differ), motion weight 1."""
+    cfg = motion_cfg(["TPU.COMPUTE_DTYPE", "float32"])
+    schedule = lambda i: {"noise_stddev": 0.0, "motion_weight": 1.0}  # noqa: E731
+    launched = _agree_train_step("cpu_agreement_motion_train_step", cfg, make_motion_batch(203, 2, 64, 96, "cpu"),
+                                 device, grad_clip=10.0, schedule_fn=schedule)
+    if launched["warp_bilinear_bwd_image"] != 1 or launched["warp_bilinear_bwd_coords"] != 1:
+        raise AssertionError(f"the card's step did not run K3 and K5 once each: {launched}")
 
 
 def _profile(fn, label: str, top: int, wall_iters: int = 10):
@@ -659,13 +924,16 @@ def _profile(fn, label: str, top: int, wall_iters: int = 10):
         "device_idle_share": max(0.0, 1.0 - device_ms / wall_ms),
         "device_kernel_launches": sum(r[1] for r in rows),
         "top": [{"name": k[:80], "count": c, "ms": ms} for k, c, ms in rows[:top]],
+        "hand_written": [{"name": k[:80], "count": c, "ms": ms} for k, c, ms in rows
+                         if "warp_bilinear" in k or "photometric_map" in k],
     })
 
 
 def profile_paths(device, top: int = 14):
     """Optional (``--profile``): where the device time of one steady-state
-    ``train=False`` forward, one loss pass and one train step goes, by kernel
-    name, and how much of the wall time the device is busy."""
+    ``train=False`` forward, one loss pass and one train step of MonoDepth2, and
+    one MotionLearning train step goes, by kernel name, and how much of the wall
+    time the device is busy."""
     import torch
 
     from simpledepthestimation_tpu_torch.parallel import create_train_state, make_train_step
@@ -682,13 +950,19 @@ def profile_paths(device, top: int = 14):
     _profile(lambda: forward(True), "loss_pass", top)
     step = make_train_step(state, grad_clip=float(cfg.SOLVER.GRAD_CLIP))
     _profile(lambda: step(batch), "train_step", top)
+    del state, step
+
+    cfg = motion_cfg()
+    mstate = create_train_state(cfg, generator=torch.Generator().manual_seed(0), steps_per_epoch=4)
+    mstep = make_train_step(mstate, grad_clip=float(cfg.SOLVER.GRAD_CLIP), schedule_fn=lambda i: MOTION_SCHEDULE)
+    mbatch = make_motion_batch(400, SMOKE_B, *MOTION_HW, device)
+    _profile(lambda: mstep(mbatch), "motion_train_step", top)
 
 
 def phase_cpu_agreement(device):
     import torch
 
     from simpledepthestimation_tpu_torch.models import build_model
-    from simpledepthestimation_tpu_torch.parallel import create_train_state, make_train_step
 
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -711,43 +985,8 @@ def phase_cpu_agreement(device):
         raise AssertionError("the card's forward disagrees with the CPU copy of the model")
 
     # one float32 train step on the card (kernels) and on the CPU copy (plain versions)
-    card = create_train_state(cfg, generator=torch.Generator().manual_seed(3), steps_per_epoch=4)
-    cpu = create_train_state(cfg, device="cpu", generator=torch.Generator().manual_seed(4), steps_per_epoch=4)
-    cpu.model.load_state_dict(card.model.state_dict())
-    start = {k: p.detach().cpu().clone() for k, p in card.model.named_parameters()}
-    batch_cpu = make_batch(201, 2, 64, 256, SMOKE_N, "cpu", smooth=True)
-    m_card = {k: v.item() for k, v in make_train_step(card)({k: v.to(device) for k, v in batch_cpu.items()}).items()}
-    m_cpu = {k: v.item() for k, v in make_train_step(cpu)(batch_cpu).items()}
-    loss_err = abs(m_card["total_loss"] - m_cpu["total_loss"]) / abs(m_cpu["total_loss"])
-    norm_err = abs(m_card["grad_norm"] - m_cpu["grad_norm"]) / abs(m_cpu["grad_norm"])
-    g_cpu = {k: p.grad for k, p in cpu.model.named_parameters()}
-    g_card = {k: p.grad.cpu() for k, p in card.model.named_parameters()}
-    # a gradient that is zero but for rounding is held against the largest gradient instead of its own
-    g_max = max(g.abs().max().item() for g in g_cpu.values())
-    grad_err = {k: (g_card[k] - g_cpu[k]).abs().max().item()
-                / (g_max if k in ZERO_GRADIENT_BY_CONSTRUCTION else g_cpu[k].abs().max().item())
-                for k in g_cpu}
-    worst = max(grad_err, key=grad_err.get)
-    # after the update: Adam's first step moves every parameter by the rate times
-    # g/(|g| + eps), so where |g| is rounding noise the two sides may move apart by
-    # up to twice the rate; elsewhere they agree. Held as a norm over all parameters.
-    lr = float(cfg.SOLVER.DEPTH_LR)
-    p_card = torch.cat([p.detach().cpu().flatten() for p in card.model.parameters()]).double()
-    p_cpu = torch.cat([p.detach().flatten() for p in cpu.model.parameters()]).double()
-    p_start = torch.cat([start[k].flatten() for k, _ in card.model.named_parameters()]).double()
-    update_err = ((p_card - p_cpu).norm() / (p_cpu - p_start).norm()).item()
-    max_apart = (p_card - p_cpu).abs().max().item()
-    emit({"phase": "cpu_agreement_train_step", "shape": [2, 64, 256], "loss_rel_err": loss_err,
-          "grad_norm_rel_err": norm_err, "worst_grad": worst, "worst_grad_rel_err": grad_err[worst],
-          "grad_rtol": GRAD_AGREE_RTOL, "update_rel_l2_err": update_err, "update_max_apart": max_apart, "lr": lr,
-          "metrics_card": m_card, "metrics_cpu": m_cpu})
-    if loss_err > AGREE_RTOL or norm_err > GRAD_NORM_RTOL or grad_err[worst] > GRAD_AGREE_RTOL:
-        raise AssertionError("the card's loss or parameter gradients disagree with the CPU copy of the model")
-    if not (m_cpu["grad_norm"] > 0 and all(g.abs().max().item() > 0 for k, g in g_cpu.items()
-                                           if k not in ZERO_GRADIENT_BY_CONSTRUCTION)):
-        raise AssertionError("a gradient of the CPU copy is identically zero: the comparison says nothing")
-    if update_err > 5e-2 or max_apart > 2.5 * lr:
-        raise AssertionError("the parameters after one update disagree with the CPU copy of the model")
+    _agree_train_step("cpu_agreement_train_step", cfg, make_batch(201, 2, 64, 256, SMOKE_N, "cpu", smooth=True),
+                      device)
 
 
 def main() -> int:
@@ -771,8 +1010,10 @@ def main() -> int:
           "seconds": cuda_lib.build_seconds, "built_now": cuda_lib.build_seconds is not None})
 
     flagship = phase_kernels(device)
-    by_path = {"main_path": phase_main_path(device), "train_path": phase_train_path(device)}
+    by_path = {"main_path": phase_main_path(device), "train_path": phase_train_path(device),
+               "motion_train_path": phase_motion_train_path(device)}
     phase_cpu_agreement(device)
+    phase_cpu_agreement_motion(device)
     if "--profile" in sys.argv[1:]:
         profile_paths(device)
 
@@ -780,12 +1021,16 @@ def main() -> int:
     pallas = "simpledepthestimation_tpu/ops/"
     kernels = []
     for key, name, source, replaces, paths in (
-        ("warp", "warp_bilinear_fwd", csrc + "warp.cu", pallas + "pallas_warp.py:755", ("main_path", "train_path")),
+        ("warp", "warp_bilinear_fwd", csrc + "warp.cu", pallas + "pallas_warp.py:755",
+         ("main_path", "train_path", "motion_train_path")),
         ("photo", "photometric_map_fwd", csrc + "photometric.cu", pallas + "pallas_photometric.py:243",
          ("main_path", "train_path")),
-        ("warp_bwd", "warp_bilinear_bwd_coords", csrc + "warp.cu", pallas + "pallas_warp.py:802", ("train_path",)),
+        ("warp_bwd", "warp_bilinear_bwd_coords", csrc + "warp.cu", pallas + "pallas_warp.py:802",
+         ("train_path", "motion_train_path")),
         ("photo_bwd", "photometric_map_bwd", csrc + "photometric.cu", pallas + "pallas_photometric.py:171",
          ("train_path",)),
+        ("warp_bwd_image", "warp_bilinear_bwd_image", csrc + "warp.cu", pallas + "pallas_warp.py:1119",
+         ("motion_train_path",)),
     ):
         counts = {path: by_path[path][name] for path in paths}
         if min(counts.values()) < 1:

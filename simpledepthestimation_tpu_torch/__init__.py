@@ -17,5 +17,7 @@ used only when the caller passes ``device="cpu"``. Kernel wrappers
 (``ops/warp.py``, ``ops/photometric.py``) launch their CUDA kernel for a CUDA
 tensor and take their plain PyTorch version only for a CPU tensor.
 
-Randomness is explicit: weight initialisation takes a ``torch.Generator``.
+Randomness is explicit: weight initialisation takes a ``torch.Generator``, and
+so does the noise of ``RandLayerNorm`` (a training state carries one on the
+model's device).
 """

@@ -257,12 +257,16 @@ photometric_map_bwd_kernel(const T* __restrict__ a, const T* __restrict__ b,
             s_ab += va * vb;
           }
         }
+        // rounded one operation at a time (no fused multiply-add), so that a == b
+        // gives n1 == d1 and n2 == d2 exactly, ratio 0 and the clip's zero gradient,
+        // as the plain version does
         const float mu_a = s_a / 9.0f, mu_b = s_b / 9.0f;
-        const float sig_a = s_aa / 9.0f - mu_a * mu_a;
-        const float sig_b = s_bb / 9.0f - mu_b * mu_b;
-        const float sig_ab = s_ab / 9.0f - mu_a * mu_b;
-        const float n1 = 2.0f * mu_a * mu_b + C1, n2 = 2.0f * sig_ab + C2;
-        const float d1 = mu_a * mu_a + mu_b * mu_b + C1, d2 = sig_a + sig_b + C2;
+        const float mu_aa = __fmul_rn(mu_a, mu_a), mu_bb = __fmul_rn(mu_b, mu_b), mu_ab = __fmul_rn(mu_a, mu_b);
+        const float sig_a = __fsub_rn(s_aa / 9.0f, mu_aa);
+        const float sig_b = __fsub_rn(s_bb / 9.0f, mu_bb);
+        const float sig_ab = __fsub_rn(s_ab / 9.0f, mu_ab);
+        const float n1 = __fadd_rn(2.0f * mu_ab, C1), n2 = __fadd_rn(2.0f * sig_ab, C2);
+        const float d1 = __fadd_rn(__fadd_rn(mu_aa, mu_bb), C1), d2 = __fadd_rn(__fadd_rn(sig_a, sig_b), C2);
         const float n = n1 * n2, d = d1 * d2;
         const float ratio = (1.0f - n / d) * 0.5f;
         if (ratio > 0.0f && ratio < 1.0f) {

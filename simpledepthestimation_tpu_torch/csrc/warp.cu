@@ -1,5 +1,6 @@
 // Bilinear warp at float pixel coordinates x,y[b,i,j]: the forward sample
-// (kernel K1) and its coordinate cotangents (kernel K3).
+// (kernel K1), its coordinate cotangents (kernel K3) and its image cotangent
+// (kernel K5).
 //
 // K1, forward: out[b,c,i,j] = sum over the four corners of
 // image[b,c,y0+dy,x0+dx] * weight, every corner outside the image contributing
@@ -36,6 +37,20 @@
 // forward and backward agree on every mask), the channel sum held in two
 // registers: every output is written by exactly one thread, no atomics, so the
 // result is deterministic. ct is read in the image's type and summed in float32.
+//
+// K5, backward in the image (coordinates held constant): the transpose of K1,
+//   d_img[b,c,r,w] = sum over (i,j) and corners (r,w) of ct[b,c,i,j] * weight,
+// with the corner weights (1-wx)(1-wy), wx(1-wy), (1-wx)wy, wx*wy. Replaces
+// _img_ct_kernel (via warp_image_cotangent) of the same file, which writes the
+// scatter as a product of one-hot row and column matrices because its target
+// has no scatter. Bound: bytes, B*Ho*Wo*(8 + s*C) read + B*Hi*Wi*C*4 written.
+// Design: one thread per output pixel, K1's corners_at (so the three kernels
+// agree on every clamp and mask), and per channel up to four float32
+// atomicAdds into a zero-filled float32 d_img; corners outside the image or of
+// weight exactly 0 are skipped. The atomics make the order of the additions,
+// and so the last bits of d_img, vary from run to run. Where many pixels land
+// on one address (coordinates clamped to the border) the atomics to that
+// address serialise.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -142,6 +157,38 @@ warp_bilinear_bwd_coords_kernel(const T* __restrict__ img, const float* __restri
   dy[b * out_plane + pix] = ay;
 }
 
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+warp_bilinear_bwd_image_kernel(const T* __restrict__ ct, const float* __restrict__ x,
+                               const float* __restrict__ y, float* __restrict__ d_img,
+                               int C, int Hi, int Wi, long long out_plane) {
+  const long long pix = (long long)blockIdx.x * kThreads + threadIdx.x;
+  if (pix >= out_plane) return;
+  const int b = blockIdx.y;
+  const Corners k = corners_at(x[b * out_plane + pix], y[b * out_plane + pix], Hi, Wi);
+  const float wx = k.wx, wy = k.wy;
+  const float w00 = k.m00 ? (1.0f - wx) * (1.0f - wy) : 0.0f;
+  const float w01 = k.m01 ? wx * (1.0f - wy) : 0.0f;
+  const float w10 = k.m10 ? (1.0f - wx) * wy : 0.0f;
+  const float w11 = k.m11 ? wx * wy : 0.0f;
+  if (w00 == 0.0f && w01 == 0.0f && w10 == 0.0f && w11 == 0.0f) return;
+  const long long in_plane = (long long)Hi * Wi;
+
+  float* dst = d_img + (long long)b * C * in_plane;
+  const T* g = ct + (long long)b * C * out_plane + pix;
+  for (int c = 0; c < C; ++c) {
+    const float gc = ld(g);
+    if (gc != 0.0f) {
+      if (w00 != 0.0f) atomicAdd(dst + k.o00, gc * w00);
+      if (w01 != 0.0f) atomicAdd(dst + k.o01, gc * w01);
+      if (w10 != 0.0f) atomicAdd(dst + k.o10, gc * w10);
+      if (w11 != 0.0f) atomicAdd(dst + k.o11, gc * w11);
+    }
+    dst += in_plane;
+    g += out_plane;
+  }
+}
+
 }  // namespace
 
 extern "C" {
@@ -182,6 +229,26 @@ int sde_warp_bilinear_bwd_coords(const void* img, const void* x, const void* y, 
     warp_bilinear_bwd_coords_kernel<float><<<grid, kThreads, 0, s>>>(
         (const float*)img, (const float*)x, (const float*)y, (const float*)ct, (float*)dx,
         (float*)dy, C, Hi, Wi, out_plane);
+  }
+  return (int)cudaGetLastError();
+}
+
+// Image cotangent of the forward above: d_img [B,C,Hi,Wi] float32, which the
+// caller has zero-filled, accumulates ct [B,C,Ho,Wo] (the image's type) at
+// coordinates x, y [B,Ho,Wo]. Same launch contract.
+int sde_warp_bilinear_bwd_image(const void* ct, const void* x, const void* y, void* d_img,
+                                int B, int C, int Hi, int Wi, int Ho, int Wo, int is_bf16,
+                                void* stream) {
+  const long long out_plane = (long long)Ho * Wo;
+  dim3 grid((unsigned)((out_plane + kThreads - 1) / kThreads), (unsigned)B);
+  cudaStream_t s = (cudaStream_t)stream;
+  if (is_bf16) {
+    warp_bilinear_bwd_image_kernel<__nv_bfloat16><<<grid, kThreads, 0, s>>>(
+        (const __nv_bfloat16*)ct, (const float*)x, (const float*)y, (float*)d_img, C, Hi, Wi,
+        out_plane);
+  } else {
+    warp_bilinear_bwd_image_kernel<float><<<grid, kThreads, 0, s>>>(
+        (const float*)ct, (const float*)x, (const float*)y, (float*)d_img, C, Hi, Wi, out_plane);
   }
   return (int)cudaGetLastError();
 }

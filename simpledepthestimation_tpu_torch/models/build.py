@@ -51,13 +51,20 @@ def resolve_device(device: Optional[Union[str, torch.device]] = None) -> torch.d
 
 def init_weights(model: nn.Module, generator: torch.Generator) -> None:
     """Seeded initialisation on the CPU, before the move to the device:
-    convolutions N(0, 1/fan_in) with zero bias, the pose head Xavier-uniform,
-    norm layers weight 1 / bias 0 / running statistics 0 and 1."""
+    convolutions N(0, 1/fan_in) with zero bias, or Xavier-uniform where the
+    conv is marked ``xavier`` (the JAX modules' ``xavier_uniform`` kernels:
+    pose heads, the GoogleResNet decoder, the motion net's seed and refiner
+    heads); norm layers weight 1 / bias 0 / running statistics 0 and 1; and
+    every parameter that a module lists in its ``param_init`` dict (name →
+    value: RandLayerNorm's weight and bias, the learned motion scales)."""
     for name, m in model.named_modules():
+        for pname, value in getattr(m, "param_init", {}).items():
+            with torch.no_grad():
+                getattr(m, pname).fill_(value)
         if isinstance(m, nn.Conv2d):
             fan_in = m.in_channels * m.kernel_size[0] * m.kernel_size[1] // m.groups
             with torch.no_grad():
-                if name.endswith("pose_pred"):
+                if getattr(m, "xavier", False):
                     fan_out = m.out_channels * m.kernel_size[0] * m.kernel_size[1]
                     bound = math.sqrt(6.0 / (fan_in + fan_out))
                     m.weight.uniform_(-bound, bound, generator=generator)

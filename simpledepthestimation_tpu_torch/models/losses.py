@@ -1,16 +1,22 @@
 """Depth-estimation losses as plain functions on NCHW tensors.
 
-Counterpart of ``simpledepthestimation_tpu/models/losses.py`` (supervised,
-SSIM, photometric and smoothness terms; the motion losses are not ported yet).
-Boolean-mask indexing is a fixed-shape masked mean (an empty mask gives 0, not
-NaN). Everything runs in float32.
+Counterpart of ``simpledepthestimation_tpu/models/losses.py``: supervised,
+SSIM (plain and proximity-weighted), photometric, smoothness and the motion
+terms (cycle consistency, motion smoothness, L0.5 sparsity). Boolean-mask
+indexing is a fixed-shape masked mean (an empty mask gives 0, not NaN).
+Everything runs in float32.
 """
 
 from __future__ import annotations
 
+from typing import Tuple
+
 import torch
 
+from ..geometry.pose import matmul3
 from ..ops.photometric import ssim_distance
+from ..ops.pool import avg_pool_3x3_reflect, avg_pool_3x3_same
+from ..ops.resample import resample_bilinear_image_grad
 
 
 def masked_mean(x: torch.Tensor, mask: torch.Tensor, dim=None) -> torch.Tensor:
@@ -44,6 +50,38 @@ def ssim(x: torch.Tensor, y: torch.Tensor, C1: float = 1e-4, C2: float = 9e-4) -
     """SSIM *distance* in [0,1]: clamp((1 − ssim)/2, 0, 1), reflection pad 1 +
     3×3 average pool."""
     return ssim_distance(x, y, C1, C2)
+
+
+def weighted_ssim(
+    x: torch.Tensor, y: torch.Tensor, w: torch.Tensor, C1: float = 1e-4, C2: float = 9e-4
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Proximity-weighted SSIM distance of ``x, y`` [B,C,H,W] under weights
+    ``w`` [B,1,H,W]: weighted 3×3 reflect-padded means, ``C1 = inf`` keeps the
+    structure term only, ``C2 = inf`` the mean term only. Returns
+    (distance [B,C,H,W] in [0,1], average weight [B,1,H,W])."""
+    avg_w = avg_pool_3x3_same(w)
+    w_eps = w + 1e-2
+    inv_avg_w = 1.0 / (avg_w + 1e-2)
+
+    def wpool(v):
+        return avg_pool_3x3_reflect(v * w_eps) * inv_avg_w
+
+    mu_x = wpool(x)
+    mu_y = wpool(y)
+    sigma_x = wpool(x * x) - mu_x**2
+    sigma_y = wpool(y * y) - mu_y**2
+    sigma_xy = wpool(x * y) - mu_x * mu_y
+
+    if C1 == float("inf"):
+        ssim_n = 2 * sigma_xy + C2
+        ssim_d = sigma_x + sigma_y + C2
+    elif C2 == float("inf"):
+        ssim_n = 2 * mu_x * mu_y + C1
+        ssim_d = mu_x**2 + mu_y**2 + C1
+    else:
+        ssim_n = (2 * sigma_xy + C2) * (2 * mu_x * mu_y + C1)
+        ssim_d = (sigma_x + sigma_y + C2) * (mu_x**2 + mu_y**2 + C1)
+    return torch.clamp((1.0 - ssim_n / ssim_d) / 2.0, 0.0, 1.0), avg_w
 
 
 def photometric_loss(
@@ -97,3 +135,59 @@ def smoothness_loss(depth: torch.Tensor, image: torch.Tensor, reversed: bool = F
     wy = torch.exp(-i_gy.abs().mean(dim=1, keepdim=True))
 
     return (d_gx * wx).abs().mean() + (d_gy * wy).abs().mean()
+
+
+def motion_consistency_loss(
+    coords_A_in_B: torch.Tensor,
+    mask: torch.Tensor,
+    R_A2B: torch.Tensor,
+    R_B2A: torch.Tensor,
+    t_A2B: torch.Tensor,
+    t_B2A: torch.Tensor,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Cyclic rotation and translation consistency.
+
+    coords_A_in_B [B,H,W,2] normalized warp coordinates (detached here);
+    mask [B,1,H,W]; R_* [B,3,3]; t_* [B,3,H,W] dense translation fields. The
+    reverse field is sampled at the forward warp's coordinates with its
+    gradient flowing into ``t_B2A`` only (the warp's image-gradient kernel on
+    CUDA). Returns (rotation error, translation error)."""
+    B, _, H, W = t_A2B.shape
+    coords = coords_A_in_B.detach()
+    xs = ((coords[..., 0] + 1.0) * (W - 1.0) / 2.0).contiguous()
+    ys = ((coords[..., 1] + 1.0) * (H - 1.0) / 2.0).contiguous()
+    sampled_t_B2A = resample_bilinear_image_grad(t_B2A.contiguous(), xs, ys)
+
+    R2R1 = matmul3(R_A2B, R_B2A)
+    # rotate the sampled reverse translation into frame B: R_A2B @ t per pixel
+    rot_t = matmul3(R_A2B, sampled_t_B2A.reshape(B, 3, H * W)).reshape(B, 3, H, W)
+    trans_zero = rot_t + t_A2B  # ~0 under cycle consistency
+
+    eye = torch.eye(3, dtype=R_A2B.dtype, device=R_A2B.device)[None]
+    rot_error = ((R2R1 - eye) ** 2).mean(dim=(1, 2))
+    rot1_scale = ((R_A2B - eye) ** 2).mean(dim=(1, 2))
+    rot2_scale = ((R_B2A - eye) ** 2).mean(dim=(1, 2))
+    rot_error = (rot_error / (rot1_scale + rot2_scale + 1e-24)).mean()
+
+    trans_error = (trans_zero**2).sum(dim=1)  # [B,H,W]
+    trans1_scale = (t_A2B**2).sum(dim=1)
+    trans2_scale = (sampled_t_B2A**2).sum(dim=1)
+    trans_error = trans_error / (trans1_scale + trans2_scale + 1e-24)
+    return rot_error, (mask[:, 0] * trans_error).mean()
+
+
+def motion_smoothness_loss(motion_field: torch.Tensor) -> torch.Tensor:
+    """Mean of sqrt(1e-24 + gx² + gy²) over the forward differences of a
+    [B,3,H,W] field (both cut to [B,3,H-1,W-1]); finite gradients at zero
+    motion."""
+    gx = gradient_x(motion_field, reversed=True)[:, :, 1:, :]
+    gy = gradient_y(motion_field, reversed=True)[:, :, :, 1:]
+    return torch.sqrt(1e-24 + gx**2 + gy**2).mean()
+
+
+def motion_sparsity_loss(motion_map: torch.Tensor) -> torch.Tensor:
+    """L0.5 sparsity of a [B,3,H,W] field normalized by its detached
+    per-sample, per-channel mean magnitude."""
+    abs_motion = motion_map.abs()
+    mean_abs = abs_motion.mean(dim=(2, 3), keepdim=True).detach()
+    return (2.0 * mean_abs * torch.sqrt(abs_motion / (mean_abs + 1e-24) + 1.0)).mean()

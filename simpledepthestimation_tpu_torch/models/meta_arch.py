@@ -1,13 +1,15 @@
 """Meta-architectures: the cfg-built top-level models.
 
 Counterparts of ``SupDepthModel`` and ``MonoDepth2Model`` in
-``simpledepthestimation_tpu/models/meta_arch.py``.
+``simpledepthestimation_tpu/models/meta_arch.py`` (``MotionLearningModel`` is
+in ``motion_meta_arch.py``).
 
-Interface: ``model(batch, train=...)`` where ``batch`` is a dict of NCHW
+Interface: ``model(batch, train=..., generator=None)`` where ``batch`` is a dict of NCHW
 tensors on the model's device (``img``, ``img_orig`` [B,3,H,W]; ``ctx_img``,
 ``ctx_img_orig`` [B,N,3,H,W]; ``intrinsics`` [B,3,3]; optional ``flip`` [B]
 bool, ``depth`` [B,1,H,W]). ``train=True`` returns a dict of scalar losses,
-``train=False`` returns ``{"depth_pred": [B,1,H,W]}``.
+``train=False`` returns ``{"depth_pred": [B,1,H,W]}``. ``generator`` is the
+source of any noise a model draws in training (none of the two here draws any).
 
 ``train`` selects the output **and** the BatchNorm mode (batch statistics and
 running-statistics update when True), exactly as in the JAX modules. It is an
@@ -23,7 +25,7 @@ float32.
 
 from __future__ import annotations
 
-from typing import Dict, Tuple
+from typing import Dict, Optional
 
 import torch
 import torch.nn as nn
@@ -59,7 +61,8 @@ class SupDepthModel(nn.Module):
             variance_focus=float(cfg.LOSS.get("VARIANCE_FOCUS", 0.85)),
         )
 
-    def forward(self, batch: Dict[str, torch.Tensor], train: bool = False) -> Dict[str, torch.Tensor]:
+    def forward(self, batch: Dict[str, torch.Tensor], train: bool = False,
+                generator: Optional[torch.Generator] = None) -> Dict[str, torch.Tensor]:
         net_input = normalize_image(batch["img"], self.pixel_mean, self.pixel_std)
         depth_pred = self.depth_net(
             net_input, flip=batch.get("flip"), train=train, intrinsics=batch.get("intrinsics")
@@ -136,7 +139,8 @@ class MonoDepth2Model(nn.Module):
             photo = torch.minimum(photo, cap)
         return photo
 
-    def forward(self, batch: Dict[str, torch.Tensor], train: bool = False) -> Dict[str, torch.Tensor]:
+    def forward(self, batch: Dict[str, torch.Tensor], train: bool = False,
+                generator: Optional[torch.Generator] = None) -> Dict[str, torch.Tensor]:
         net_input = normalize_image(batch["img"], self.pixel_mean, self.pixel_std)
         depth_pred = self.depth_net(net_input, flip=batch.get("flip"), train=train)
 

@@ -27,11 +27,15 @@ import torch.nn.functional as F
 
 
 class Conv2d(nn.Conv2d):
-    """``nn.Conv2d`` computing in ``compute_dtype`` with float32 parameters."""
+    """``nn.Conv2d`` computing in ``compute_dtype`` with float32 parameters.
+    ``xavier=True`` marks a kernel that ``models.build.init_weights`` draws
+    Xavier-uniform (where the JAX module names ``xavier_uniform``) instead of
+    N(0, 1/fan_in)."""
 
-    def __init__(self, *args, compute_dtype: torch.dtype = torch.float32, **kwargs):
+    def __init__(self, *args, compute_dtype: torch.dtype = torch.float32, xavier: bool = False, **kwargs):
         super().__init__(*args, **kwargs)
         self.compute_dtype = compute_dtype
+        self.xavier = xavier
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         dt = self.compute_dtype

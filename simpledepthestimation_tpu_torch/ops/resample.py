@@ -1,12 +1,15 @@
 """Bilinear image resampling entry points (NCHW).
 
-Counterpart of ``simpledepthestimation_tpu/ops/resample.py``: the same three
+Counterpart of ``simpledepthestimation_tpu/ops/resample.py``: the same four
 public functions with the same semantics (``F.grid_sample(mode="bilinear",
 padding_mode="zeros", align_corners=True)``, every corner masked on its own).
 All of them go through :func:`..ops.warp.warp_bilinear`, which launches the
 CUDA kernel for CUDA tensors and takes the plain 4-gather version for CPU
 tensors. There is no implementation switch: the JAX package's warp-backend
-selector schedules its TPU kernels and has no counterpart here.
+selector schedules its TPU kernels and has no counterpart here, nor has its
+``const_image_warps`` scope: the warp's ``torch.autograd.Function`` computes
+the image gradient only where the image requires one, so a detached operand
+already costs no scatter.
 """
 
 from __future__ import annotations
@@ -19,6 +22,14 @@ from .warp import warp_bilinear
 def resample_bilinear(image: torch.Tensor, x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
     """Bilinear sample of ``image [B,C,H,W]`` at pixel coords ``x, y [B,h,w]``."""
     return warp_bilinear(image, x, y)
+
+
+def resample_bilinear_image_grad(image: torch.Tensor, x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+    """Bilinear sample whose gradient flows into ``image`` only: the
+    coordinates are detached (MotionLearning's cycle loss warps the reverse
+    translation field at the forward warp's coordinates). The image gradient
+    is the scatter-add kernel on CUDA, its plain version on the CPU."""
+    return warp_bilinear(image, x.detach(), y.detach())
 
 
 def grid_sample_bilinear(image: torch.Tensor, grid: torch.Tensor) -> torch.Tensor:

@@ -1,14 +1,16 @@
 """Bilinear warp at per-pixel float coordinates: kernel wrappers + plain versions.
 
 ``warp_bilinear`` is a ``torch.autograd.Function`` around the hand-written CUDA
-kernels of ``csrc/warp.cu``: the forward sample and the backward that yields the
-coordinate cotangents ``dx, dy`` (the gradient that trains depth and pose).
-Beside each kernel stands the same function in plain PyTorch:
-``warp_bilinear_plain`` (four gathers, the counterpart of
-``_resample_bilinear_4gather`` in ``simpledepthestimation_tpu/ops/resample.py``)
-and ``warp_coord_grad_plain`` (the explicit derivative of the bilinear
-weights). The wrapper takes the plain versions only for CPU tensors; for CUDA
-tensors it launches the kernels or raises.
+kernels of ``csrc/warp.cu``: the forward sample, the backward that yields the
+coordinate cotangents ``dx, dy`` (the gradient that trains depth and pose), and
+the backward that yields the image cotangent (a bilinear scatter-add: what the
+MotionLearning cycle loss sends into the warped translation field). Beside each
+kernel stands the same function in plain PyTorch: ``warp_bilinear_plain``
+(four gathers, the counterpart of ``_resample_bilinear_4gather`` in
+``simpledepthestimation_tpu/ops/resample.py``), ``warp_coord_grad_plain`` (the
+explicit derivative of the bilinear weights) and ``warp_image_grad_plain`` (four
+``scatter_add_``). The wrappers take the plain versions only for CPU tensors;
+for CUDA tensors they launch the kernels or raise.
 
 Semantics (all): ``out[b,c,i,j]`` is the bilinear sample of ``image[b,c]`` at
 ``(x[b,i,j], y[b,i,j])`` in pixel units; each of the four corners that lies
@@ -21,12 +23,11 @@ gradient is the almost-everywhere derivative (``floor`` has gradient zero):
     dx[b,i,j] = Σ_c ct[b,c,i,j] · [(v01 − v00)(1 − wy) + (v11 − v10)·wy]
     dy[b,i,j] = Σ_c ct[b,c,i,j] · [(v10 − v00)(1 − wx) + (v11 − v01)·wx]
 
-with ``v..`` the four (masked) corner values and ``wx, wy`` the fractions.
-
-The image gradient (a bilinear scatter-add) has no CUDA kernel yet: on the CPU
-it comes from autograd of the plain version; on CUDA an ``image`` that requires
-grad raises ``NotImplementedError`` at the call. The MonoDepth2 step never asks
-for it: the warped operand is a context frame, a constant.
+with ``v..`` the four (masked) corner values and ``wx, wy`` the fractions. The
+image gradient adds ``ct[b,c,i,j]`` times each corner's weight
+(``(1−wx)(1−wy)``, ``wx(1−wy)``, ``(1−wx)wy``, ``wx·wy``) into that corner.
+On CUDA it is summed with float32 atomics, so its last bits vary from run to
+run (as ``F.grid_sample``'s input gradient does).
 """
 
 from __future__ import annotations
@@ -39,17 +40,17 @@ from torch.autograd.function import once_differentiable
 from . import cuda_lib
 
 
-def _corner(flat: torch.Tensor, ix: torch.Tensor, iy: torch.Tensor, H: int, W: int) -> torch.Tensor:
-    """Gather ``flat [B,C,H*W]`` at integer ``(ix, iy) [B,N]``; zero outside."""
+def _corner_index(ix: torch.Tensor, iy: torch.Tensor, H: int, W: int):
+    """Flat index into a plane (clamped, so always valid) and in-image mask of
+    the integer corner ``(ix, iy) [B,N]``."""
     inb = (ix >= 0) & (ix <= W - 1) & (iy >= 0) & (iy <= H - 1)
-    idx = iy.clamp(0, H - 1) * W + ix.clamp(0, W - 1)
-    vals = torch.gather(flat, 2, idx[:, None, :].expand(-1, flat.shape[1], -1))
-    return vals * inb[:, None, :].to(flat.dtype)
+    return iy.clamp(0, H - 1) * W + ix.clamp(0, W - 1), inb
 
 
-def _corners_and_fractions(image: torch.Tensor, x: torch.Tensor, y: torch.Tensor):
-    """The four masked corner values ``[B,C,N]`` (float32) and ``wx, wy [B,1,N]``."""
-    B, C, H, W = image.shape
+def _floors_and_fractions(x: torch.Tensor, y: torch.Tensor, H: int, W: int):
+    """Top-left corner ``x0i, y0i [B,N]`` (int64) and fractions ``wx, wy
+    [B,1,N]`` of the coordinates ``x, y [B,...]`` into an ``H×W`` plane."""
+    B = x.shape[0]
     x = x.reshape(B, -1).float()
     y = y.reshape(B, -1).float()
     x0 = torch.floor(x)
@@ -57,9 +58,20 @@ def _corners_and_fractions(image: torch.Tensor, x: torch.Tensor, y: torch.Tensor
     wx = (x - x0)[:, None, :]
     wy = (y - y0)[:, None, :]
     # clamp while still float so that huge coordinates stay "outside"
-    x0i = x0.clamp(-2, W).long()
-    y0i = y0.clamp(-2, H).long()
+    return x0.clamp(-2, W).long(), y0.clamp(-2, H).long(), wx, wy
 
+
+def _corner(flat: torch.Tensor, ix: torch.Tensor, iy: torch.Tensor, H: int, W: int) -> torch.Tensor:
+    """Gather ``flat [B,C,H*W]`` at integer ``(ix, iy) [B,N]``; zero outside."""
+    idx, inb = _corner_index(ix, iy, H, W)
+    vals = torch.gather(flat, 2, idx[:, None, :].expand(-1, flat.shape[1], -1))
+    return vals * inb[:, None, :].to(flat.dtype)
+
+
+def _corners_and_fractions(image: torch.Tensor, x: torch.Tensor, y: torch.Tensor):
+    """The four masked corner values ``[B,C,N]`` (float32) and ``wx, wy [B,1,N]``."""
+    B, C, H, W = image.shape
+    x0i, y0i, wx, wy = _floors_and_fractions(x, y, H, W)
     flat = image.reshape(B, C, H * W).float()
     v00 = _corner(flat, x0i, y0i, H, W)
     v01 = _corner(flat, x0i + 1, y0i, H, W)
@@ -92,6 +104,24 @@ def warp_coord_grad_plain(
     dx = (ct * ((v01 - v00) * (1 - wy) + (v11 - v10) * wy)).sum(dim=1)
     dy = (ct * ((v10 - v00) * (1 - wx) + (v11 - v01) * wx)).sum(dim=1)
     return dx.reshape(x.shape), dy.reshape(x.shape)
+
+
+def warp_image_grad_plain(x: torch.Tensor, y: torch.Tensor, ct: torch.Tensor, H: int, W: int) -> torch.Tensor:
+    """Plain PyTorch version of the image cotangent.
+
+    x, y [B,h,w]; ct [B,C,h,w] (cotangent of the warp's output); ``H, W`` the
+    image's plane. Returns ``d_image`` [B,C,H,W] float32: the four masked,
+    weighted corners of every output pixel scattered with ``scatter_add_``."""
+    B, C = ct.shape[:2]
+    x0i, y0i, wx, wy = _floors_and_fractions(x, y, H, W)
+    ct = ct.reshape(B, C, -1).float()
+    d_image = torch.zeros((B, C, H * W), dtype=torch.float32, device=ct.device)
+    for dx, dy, weight in ((0, 0, (1 - wx) * (1 - wy)), (1, 0, wx * (1 - wy)),
+                           (0, 1, (1 - wx) * wy), (1, 1, wx * wy)):
+        idx, inb = _corner_index(x0i + dx, y0i + dy, H, W)
+        vals = ct * (weight * inb[:, None, :].float())
+        d_image.scatter_add_(2, idx[:, None, :].expand(-1, C, -1), vals)
+    return d_image.reshape(B, C, H, W)
 
 
 def _check(image: torch.Tensor, x: torch.Tensor, y: torch.Tensor) -> None:
@@ -176,11 +206,51 @@ def warp_coord_grad(
     return dx, dy
 
 
+def warp_image_grad(x: torch.Tensor, y: torch.Tensor, ct: torch.Tensor, H: int, W: int) -> torch.Tensor:
+    """Image cotangent ``d_image`` [B,C,H,W] float32 of the warp of an ``H×W``
+    image at ``x, y`` [B,h,w] for the output cotangent ``ct`` [B,C,h,w]; CUDA
+    kernel for CUDA tensors, plain version for CPU tensors.
+
+    ``ct`` is read in its own dtype (float32 or bfloat16: the image's, as it
+    arrives from autograd) and need not be contiguous. The kernel adds with
+    float32 atomics: the result's last bits vary from run to run."""
+    B, C, h, w = ct.shape
+    if x.shape != (B, h, w) or y.shape != x.shape or x.device != ct.device or y.device != ct.device:
+        raise ValueError(f"x, y must be {(B, h, w)} on {ct.device}, got {tuple(x.shape)}, {tuple(y.shape)}")
+    if ct.device.type == "cpu":
+        return warp_image_grad_plain(x, y, ct, H, W)
+    if ct.device.type != "cuda":
+        raise ValueError(f"warp_image_grad supports cpu and cuda tensors, got {ct.device}")
+    if ct.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"ct must be float32 or bfloat16, got {ct.dtype}")
+    if x.dtype != torch.float32 or y.dtype != torch.float32:
+        raise TypeError(f"x, y must be float32, got {x.dtype} and {y.dtype}")
+    if not (x.is_contiguous() and y.is_contiguous()):
+        raise ValueError("x and y must be contiguous")
+    if B > 65535:
+        raise ValueError(f"batch {B} exceeds the kernel's grid limit of 65535")
+    ct = ct.contiguous()  # autograd may hand over a strided or expanded (stride-0) view
+    d_image = torch.zeros((B, C, H, W), dtype=torch.float32, device=ct.device)
+    if d_image.numel() == 0 or ct.numel() == 0:
+        return d_image
+    lib = cuda_lib.load()
+    with cuda_lib.on_device(ct.device):
+        code = lib.sde_warp_bilinear_bwd_image(
+            ct.data_ptr(), x.data_ptr(), y.data_ptr(), d_image.data_ptr(),
+            B, C, H, W, h, w, int(ct.dtype == torch.bfloat16),
+            torch.cuda.current_stream().cuda_stream,
+        )
+    cuda_lib.check(lib, code, "warp_bilinear_bwd_image launch")
+    warp_bilinear.bwd_image_launches += 1
+    return d_image
+
+
 class _WarpBilinear(torch.autograd.Function):
     """Forward: the forward kernel on CUDA, the plain version on the CPU.
-    Backward: ``(dx, dy)`` from :func:`warp_coord_grad` (the backward kernel
-    on CUDA, the plain version on the CPU), only where a coordinate asks for a
-    gradient; the image gradient from autograd of the plain version, CPU only."""
+    Backward, each only where its input asks for a gradient: ``(dx, dy)`` from
+    :func:`warp_coord_grad` and the image gradient from
+    :func:`warp_image_grad` (the backward kernels on CUDA, the plain versions
+    on the CPU)."""
 
     @staticmethod
     def forward(ctx, image, x, y):
@@ -200,11 +270,7 @@ class _WarpBilinear(torch.autograd.Function):
             dx = dx.to(x.dtype) if need_x else None
             dy = dy.to(y.dtype) if need_y else None
         if need_image:
-            # only reachable on the CPU: warp_bilinear refuses a CUDA image that requires grad
-            with torch.enable_grad():
-                leaf = image.detach().requires_grad_()
-                out = warp_bilinear_plain(leaf, x, y)
-            (d_image,) = torch.autograd.grad(out, leaf, ct)
+            d_image = warp_image_grad(x, y, ct, image.shape[2], image.shape[3]).to(image.dtype)
         return d_image, dx, dy
 
 
@@ -214,19 +280,12 @@ def warp_bilinear(image: torch.Tensor, x: torch.Tensor, y: torch.Tensor) -> torc
     image: [B,C,H,W] float32 or bfloat16, contiguous; x, y: [B,h,w] float32,
     contiguous. Returns [B,C,h,w] in ``image.dtype``.
 
-    Differentiable in ``x`` and ``y`` on both devices (a hand-written backward
-    kernel on CUDA) and in ``image`` on the CPU. A CUDA ``image`` that requires
-    grad while grad mode is on raises ``NotImplementedError``: the image
-    cotangent kernel belongs to the MotionLearning slice of the port, and
-    nothing here falls back to a scatter in plain PyTorch.
+    Differentiable in ``image``, ``x`` and ``y`` on both devices (hand-written
+    backward kernels on CUDA); each gradient is computed only where its input
+    requires one, so a detached image costs no scatter.
     """
     _check(image, x, y)
     if image.device.type == "cuda":
-        if torch.is_grad_enabled() and image.requires_grad:
-            raise NotImplementedError(
-                "warp_bilinear has no image-gradient kernel on CUDA yet (MotionLearning slice of "
-                "the port); detach the image, or call it under torch.no_grad()"
-            )
         _check_cuda(image, x, y)
     elif image.device.type != "cpu":
         raise ValueError(f"warp_bilinear supports cpu and cuda tensors, got {image.device}")
@@ -236,3 +295,4 @@ def warp_bilinear(image: torch.Tensor, x: torch.Tensor, y: torch.Tensor) -> torc
 # counts of kernel launches (incremented where a kernel is launched, nowhere else)
 warp_bilinear.launches = 0
 warp_bilinear.bwd_launches = 0
+warp_bilinear.bwd_image_launches = 0

@@ -7,14 +7,17 @@ schedules its TPU warp kernels and has no counterpart here: the CUDA warp
 gathers directly and has no window.
 
     state = create_train_state(cfg, steps_per_epoch=n)     # on the card
-    step = make_train_step(state, grad_clip=cfg.SOLVER.GRAD_CLIP)
+    step = make_train_step(state, grad_clip=cfg.SOLVER.GRAD_CLIP,
+                           schedule_fn=None)     # MotionLearning: models.make_schedule_fn(cfg)
     metrics = step(batch)        # dict of 0-d device tensors, no host sync
 
 Semantics kept from the JAX step: the total loss is the sum of the model's
 outputs whose key contains ``"loss"``; ``grad_norm`` is the global 2-norm over
 all gradients, reported whether or not clipping is on; clipping scales every
 gradient by ``min(1, clip / (norm + 1e-12))``. With bfloat16 convolutions the
-parameters, their gradients and the optimizer state stay float32.
+parameters, their gradients and the optimizer state stay float32. The noise a
+model draws in training (RandLayerNorm) comes from the state's own
+``noise_generator``, never from the global random state.
 """
 
 from __future__ import annotations
@@ -38,6 +41,7 @@ class TrainState:
     model: nn.Module
     optimizer: torch.optim.Optimizer
     scheduler: ScheduledLR
+    noise_generator: torch.Generator
     step: int = 0
 
 
@@ -48,23 +52,42 @@ def create_train_state(
     steps_per_epoch: int = 1,
 ) -> TrainState:
     """Build the model (on the CUDA device unless another is named; see
-    :func:`..models.build.build_model`), its optimizer and its schedule."""
+    :func:`..models.build.build_model`), its optimizer, its schedule and the
+    generator of its training noise: a ``torch.Generator`` on the model's
+    device seeded with ``cfg.SEED`` (0 where that is negative). ``generator``
+    is the CPU generator of the weight initialisation."""
     model = build_model(cfg, device=device, generator=generator)
     optimizer, scheduler = build_optimizer(cfg, model, steps_per_epoch)
-    return TrainState(model=model, optimizer=optimizer, scheduler=scheduler, step=0)
+    model_device = next(model.parameters()).device
+    noise = torch.Generator(device=model_device).manual_seed(max(int(cfg.get("SEED", 0)), 0))
+    return TrainState(model=model, optimizer=optimizer, scheduler=scheduler, noise_generator=noise, step=0)
 
 
-def make_train_step(state: TrainState, grad_clip: float = 0.0) -> Callable[[Dict[str, torch.Tensor]], Dict[str, torch.Tensor]]:
+def make_train_step(
+    state: TrainState,
+    grad_clip: float = 0.0,
+    schedule_fn: Optional[Callable[[int], Dict[str, float]]] = None,
+) -> Callable[[Dict[str, torch.Tensor]], Dict[str, torch.Tensor]]:
     """``step(batch) -> metrics``: one forward, backward and update of ``state``.
 
-    ``batch`` lies on the model's device. ``metrics`` holds ``total_loss``,
-    ``grad_norm`` and every entry of the model's loss dict as detached 0-d
-    tensors on that device; nothing in the step waits for the device."""
+    ``batch`` lies on the model's device. ``schedule_fn(state.step)`` (e.g.
+    :func:`..models.motion_meta_arch.make_schedule_fn`) gives per-step scalars
+    that the step adds to the batch as 0-d float32 tensors on the device, made
+    by a fill kernel rather than a copy from the host, so the step never waits
+    for the card for them.
+    ``metrics`` holds ``total_loss``, ``grad_norm`` and every entry of the
+    model's loss dict as detached 0-d tensors on that device; nothing in the
+    step waits for the device."""
     params = [p for p in state.model.parameters() if p.requires_grad]
+    device = params[0].device
 
     def step(batch: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+        if schedule_fn is not None:
+            extra = schedule_fn(state.step)
+            batch = {**batch, **{k: torch.full((), v, dtype=torch.float32, device=device)
+                                 for k, v in extra.items()}}
         state.optimizer.zero_grad(set_to_none=True)
-        outputs = state.model(batch, train=True)
+        outputs = state.model(batch, train=True, generator=state.noise_generator)
         total = torch.stack([v for k, v in outputs.items() if "loss" in k]).sum()
         total.backward()
 

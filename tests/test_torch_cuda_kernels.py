@@ -10,7 +10,8 @@ float32 tolerance 1e-5: same formula as the plain version, other summation
 order. The backward kernels are held relative to the largest value of the
 plain version's result: 1e-5 for the warp's coordinate cotangents, 1e-4 for the
 photometric VJP (its variance terms cancel before they are divided by
-denominators down to C2). (``python3 chip_smoke.py`` makes the same comparisons
+denominators down to C2). The warp's image cotangent adds with atomics in no
+fixed order: ``atol 2e-5, rtol 1e-5`` as the JAX package's test of its kernel. (``python3 chip_smoke.py`` makes the same comparisons
 at the main path's shapes.)"""
 
 import numpy as np
@@ -21,7 +22,8 @@ from simpledepthestimation_tpu_torch.ops.photometric import (
     photometric_map, photometric_map_plain, photometric_vjp, photometric_vjp_plain,
 )
 from simpledepthestimation_tpu_torch.ops.warp import (
-    warp_bilinear, warp_bilinear_plain, warp_coord_grad, warp_coord_grad_plain,
+    warp_bilinear, warp_bilinear_plain, warp_coord_grad, warp_coord_grad_plain, warp_image_grad,
+    warp_image_grad_plain,
 )
 
 pytestmark = pytest.mark.cuda
@@ -116,21 +118,72 @@ def test_photometric_backward_kernel_matches_plain(shape, both, card, rng):
     assert torch.count_nonzero(ga) == 0 and torch.count_nonzero(gb) == 0
 
 
+@pytest.mark.parametrize("shape,out_hw", [((2, 3, 37, 83), (37, 83)), ((2, 3, 44, 300), (52, 300)),
+                                          ((2, 5, 37, 83), (21, 45)), ((3, 3, 64, 640), (64, 640))])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_warp_image_grad_kernel_matches_plain(shape, out_hw, dtype, card, rng):
+    B, C, H, W = shape
+    h, w = out_hw
+    x = ((_rand(rng, B, h, w) * 3 - 1) * W).to(card)
+    y = ((_rand(rng, B, h, w) * 3 - 1) * H).to(card)
+    x[0, :4] = W - 1.0  # exact edges: the right corner is masked
+    y[-1, :, :4] = 0.0
+    ct = (_rand(rng, B, C, h, w) - 0.5).to(card).to(dtype)
+    before = warp_bilinear.bwd_image_launches
+    got = warp_image_grad(x, y, ct, H, W)
+    torch.cuda.synchronize()
+    assert warp_bilinear.bwd_image_launches == before + 1
+    assert got.shape == (B, C, H, W) and got.dtype == torch.float32
+    want = warp_image_grad_plain(x, y, ct.float(), H, W)
+    torch.testing.assert_close(got, want, atol=2e-5, rtol=1e-5)
+    # border-clamped coordinates (what view synthesis makes): many pixels on one address, and
+    # the signed terms cancel, so the relative part is taken of the sum of their sizes
+    xc, yc = x.clamp(0, W - 1), y.clamp(0, H - 1)
+    err = (warp_image_grad(xc, yc, ct, H, W) - warp_image_grad_plain(xc, yc, ct.float(), H, W)).abs()
+    assert (err <= 2e-5 + 1e-5 * warp_image_grad_plain(xc, yc, ct.float().abs(), H, W)).all()
+    # through the autograd Function: the image gradient in the image's dtype
+    img = _rand(rng, B, C, H, W).to(card).to(dtype).requires_grad_()
+    warp_bilinear(img, x, y).backward(ct)
+    assert img.grad.dtype == dtype
+    torch.testing.assert_close(img.grad.float(), want.to(dtype).float(), atol=2e-5 if dtype == torch.float32 else 1e-2,
+                               rtol=1e-5 if dtype == torch.float32 else 2.0**-7)
+
+
+def test_warp_forward_then_image_gradient_chain(card, rng):
+    """K1 then K5: the gradient of a weighted sum of the warp of a field in
+    that field, at detached coordinates, against autograd of the plain
+    version (its scatter)."""
+    B, C, H, W = 4, 3, 48, 160
+    t = _rand(rng, B, C, H, W).to(card) - 0.5
+    x = (_rand(rng, B, H, W) * (W + 8) - 4).clamp(0, W - 1).to(card)
+    y = (_rand(rng, B, H, W) * (H + 8) - 4).clamp(0, H - 1).to(card)
+    weight = _rand(rng, B, C, H, W).to(card)
+
+    def grad(warp):
+        leaf = t.clone().requires_grad_()
+        (g,) = torch.autograd.grad((warp(leaf, x, y) ** 2 * weight).sum(), leaf)
+        return g
+
+    counts = (warp_bilinear.launches, warp_bilinear.bwd_launches, warp_bilinear.bwd_image_launches)
+    got = grad(warp_bilinear)
+    torch.cuda.synchronize()
+    assert (warp_bilinear.launches, warp_bilinear.bwd_launches, warp_bilinear.bwd_image_launches) == (
+        counts[0] + 1, counts[1], counts[2] + 1)
+    torch.testing.assert_close(got, grad(warp_bilinear_plain), atol=2e-5, rtol=1e-5)
+
+
 def test_cuda_wrappers_raise_instead_of_falling_back(card, rng):
     img = _rand(rng, 1, 3, 8, 8).to(card)
     x, y = _rand(rng, 1, 8, 8).to(card), _rand(rng, 1, 8, 8).to(card)
-    # coordinates and both photometric inputs are differentiable on the card ...
-    counts = (warp_bilinear.bwd_launches, photometric_map.bwd_launches)
+    # the image, the coordinates and both photometric inputs are differentiable on the card
+    counts = (warp_bilinear.bwd_launches, warp_bilinear.bwd_image_launches, photometric_map.bwd_launches)
     xg = x.clone().requires_grad_()
     ag = img.clone().requires_grad_()
-    (photometric_map(warp_bilinear(img, xg, y), ag).sum()).backward()
-    assert xg.grad is not None and ag.grad is not None
-    assert (warp_bilinear.bwd_launches, photometric_map.bwd_launches) == (counts[0] + 1, counts[1] + 1)
-    # ... the image is not yet: no quiet scatter in plain PyTorch
-    with pytest.raises(NotImplementedError, match="MotionLearning slice"):
-        warp_bilinear(img.clone().requires_grad_(), x, y)
-    with torch.no_grad():  # no gradient asked for: the kernel runs
-        warp_bilinear(img.clone().requires_grad_(), x, y)
+    ig = img.clone().requires_grad_()
+    (photometric_map(warp_bilinear(ig, xg, y), ag).sum()).backward()
+    assert xg.grad is not None and ag.grad is not None and ig.grad is not None
+    assert (warp_bilinear.bwd_launches, warp_bilinear.bwd_image_launches, photometric_map.bwd_launches) == (
+        counts[0] + 1, counts[1] + 1, counts[2] + 1)
     with pytest.raises(ValueError, match="contiguous"):
         warp_bilinear(img.transpose(2, 3), x, y)
     with pytest.raises(TypeError):
@@ -141,3 +194,5 @@ def test_cuda_wrappers_raise_instead_of_falling_back(card, rng):
         warp_coord_grad(img, x, y, torch.zeros(1, 3, 8, 8, device=card, dtype=torch.bfloat16))
     with pytest.raises(ValueError, match="one device"):
         warp_bilinear(img, x.cpu(), y.cpu())
+    with pytest.raises(TypeError):
+        warp_image_grad(x, y, img.half(), 8, 8)

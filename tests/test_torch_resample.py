@@ -18,74 +18,9 @@ from simpledepthestimation_tpu.ops import resample as jres
 from simpledepthestimation_tpu_torch.ops import resample as tres
 from simpledepthestimation_tpu_torch.ops.warp import warp_bilinear, warp_bilinear_plain
 
-from torch_port_helpers import nchw, nhwc
+from torch_port_helpers import REGIMES, _coherent, _oob_borders, nchw, nhwc
 
 
-def _grid(B, H, W):
-    xs = np.tile(np.arange(W, dtype=np.float32), (B, H, 1))
-    ys = np.tile(np.arange(H, dtype=np.float32)[:, None], (B, 1, W))
-    return xs, ys
-
-
-def _coherent(rng, B, H, W):
-    xs, ys = _grid(B, H, W)
-    return xs - 5.0 * rng.rand(B, H, W) + 2.0 * (rng.rand(B, H, W) - 0.5), ys + 3.0 * (rng.rand(B, H, W) - 0.5)
-
-
-def _wild(rng, B, H, W):
-    return rng.rand(B, H, W) * (W - 1), rng.rand(B, H, W) * (H - 1)
-
-
-def _bidirectional(rng, B, H, W):
-    xs, ys = _grid(B, H, W)
-    return (np.clip(xs + 170 * (rng.rand(B, H, W) - 0.5), 0, W - 1),
-            np.clip(ys + 150 * (rng.rand(B, H, W) - 0.5), 0, H - 1))
-
-
-def _oob_borders(rng, B, H, W):
-    xs, ys = _grid(B, H, W)
-    return xs - 20 * rng.rand(B, H, W) + 10, ys + 10 * (rng.rand(B, H, W) - 0.7)
-
-
-def _fully_outside(rng, B, H, W):
-    return (rng.rand(B, H, W) * 3 - 1) * W, (rng.rand(B, H, W) * 3 - 1) * H
-
-
-def _minus_one_to_zero(rng, B, H, W):
-    xs, ys = _grid(B, H, W)
-    return -rng.rand(B, H, W), ys - rng.rand(B, H, W)
-
-
-def _exact_edges(rng, B, H, W):
-    """Integer coordinates incl. x == W-1 and y == H-1 (corner at W / H is masked)."""
-    xs, ys = _grid(B, H, W)
-    x = np.where(rng.rand(B, H, W) < 0.5, W - 1.0, xs)
-    y = np.where(rng.rand(B, H, W) < 0.5, H - 1.0, ys)
-    return x, y
-
-
-def _bimodal_border_clip(rng, B, H, W):
-    xs, ys = _grid(B, H, W)
-    y = np.where(rng.rand(B, H, W) < 0.5, 0.0, H - 1.0)
-    return xs + rng.rand(B, H, W), y
-
-
-def _large_uniform_shift(rng, B, H, W):
-    xs, ys = _grid(B, H, W)
-    return xs + 0.4 * W + rng.rand(B, H, W), ys - 0.3 * H + rng.rand(B, H, W)
-
-
-REGIMES = {
-    "coherent": _coherent,
-    "wild": _wild,
-    "bidirectional-large": _bidirectional,
-    "oob-borders": _oob_borders,
-    "fully-outside": _fully_outside,
-    "x-in-minus1-0": _minus_one_to_zero,
-    "exact-edges": _exact_edges,
-    "bimodal-border-clip": _bimodal_border_clip,
-    "large-uniform-shift": _large_uniform_shift,
-}
 SHAPES = [(2, 16, 40, 3), (1, 37, 83, 3), (2, 24, 80, 5)]
 
 

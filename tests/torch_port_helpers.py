@@ -10,6 +10,13 @@ import os
 import numpy as np
 import torch
 
+# The suite runs in several pytest-xdist workers on one machine (6 in ROADMAP.md's
+# tier-1 command). torch's default of one OpenMP thread per core in each of them
+# oversubscribes the CPU, and the spinning threads cost more than they add: at two
+# threads per worker the port's tests take half the wall time and 40 % of the CPU
+# time they take at the default (8 cores, 6 workers).
+torch.set_num_threads(2)
+
 REPO = os.path.abspath(os.path.join(os.path.dirname(__file__), ".."))
 
 
@@ -138,3 +145,72 @@ def init_jax_monodepth2(cfg_jax, batch, seed=0):
     jb = {k: jnp.asarray(v) for k, v in batch.items()}
     variables = jax.jit(lambda: model.init(jax.random.PRNGKey(seed), jb, train=True))()
     return model, randomize_variables(to_numpy_tree(variables))
+
+
+# --- coordinate regimes of the bilinear warp (x, y builders, [B,H,W] each) ---
+
+def _grid(B, H, W):
+    xs = np.tile(np.arange(W, dtype=np.float32), (B, H, 1))
+    ys = np.tile(np.arange(H, dtype=np.float32)[:, None], (B, 1, W))
+    return xs, ys
+
+
+def _coherent(rng, B, H, W):
+    xs, ys = _grid(B, H, W)
+    return xs - 5.0 * rng.rand(B, H, W) + 2.0 * (rng.rand(B, H, W) - 0.5), ys + 3.0 * (rng.rand(B, H, W) - 0.5)
+
+
+def _wild(rng, B, H, W):
+    return rng.rand(B, H, W) * (W - 1), rng.rand(B, H, W) * (H - 1)
+
+
+def _bidirectional(rng, B, H, W):
+    xs, ys = _grid(B, H, W)
+    return (np.clip(xs + 170 * (rng.rand(B, H, W) - 0.5), 0, W - 1),
+            np.clip(ys + 150 * (rng.rand(B, H, W) - 0.5), 0, H - 1))
+
+
+def _oob_borders(rng, B, H, W):
+    xs, ys = _grid(B, H, W)
+    return xs - 20 * rng.rand(B, H, W) + 10, ys + 10 * (rng.rand(B, H, W) - 0.7)
+
+
+def _fully_outside(rng, B, H, W):
+    return (rng.rand(B, H, W) * 3 - 1) * W, (rng.rand(B, H, W) * 3 - 1) * H
+
+
+def _minus_one_to_zero(rng, B, H, W):
+    xs, ys = _grid(B, H, W)
+    return -rng.rand(B, H, W), ys - rng.rand(B, H, W)
+
+
+def _exact_edges(rng, B, H, W):
+    """Integer coordinates incl. x == W-1 and y == H-1 (corner at W / H is masked)."""
+    xs, ys = _grid(B, H, W)
+    x = np.where(rng.rand(B, H, W) < 0.5, W - 1.0, xs)
+    y = np.where(rng.rand(B, H, W) < 0.5, H - 1.0, ys)
+    return x, y
+
+
+def _bimodal_border_clip(rng, B, H, W):
+    xs, ys = _grid(B, H, W)
+    y = np.where(rng.rand(B, H, W) < 0.5, 0.0, H - 1.0)
+    return xs + rng.rand(B, H, W), y
+
+
+def _large_uniform_shift(rng, B, H, W):
+    xs, ys = _grid(B, H, W)
+    return xs + 0.4 * W + rng.rand(B, H, W), ys - 0.3 * H + rng.rand(B, H, W)
+
+
+REGIMES = {
+    "coherent": _coherent,
+    "wild": _wild,
+    "bidirectional-large": _bidirectional,
+    "oob-borders": _oob_borders,
+    "fully-outside": _fully_outside,
+    "x-in-minus1-0": _minus_one_to_zero,
+    "exact-edges": _exact_edges,
+    "bimodal-border-clip": _bimodal_border_clip,
+    "large-uniform-shift": _large_uniform_shift,
+}
