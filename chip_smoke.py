@@ -21,9 +21,14 @@ cpu_agreement, cpu_agreement_train_step, cpu_agreement_motion_train_step (and,
 with ``--profile``, a torch.profiler breakdown of the forward calls and of both
 train steps by kernel). Then one line ``{"kernels": [...]}`` with one entry per kernel
 at the main path's largest shape, the card's name and power limit as nvidia-smi
-prints them, and the closing line ``{"ok": true, "device": {...}}``.
+prints them, and the closing line ``{"ok": true, "device": {...}}``. With
+``--kernels-only`` it stops after the kernels phase, without the closing line
+(copied into the root of another checkout, it times that checkout's kernels).
 
-Times are CUDA-event times over repeated launches after a warm-up. ``bound_ms``
+Kernel times (``measure``): ``ms`` = CUDA events over 10 back-to-back calls
+after a warm-up, ``device_ms`` = the device time per call of the kernels those
+calls launched (torch.profiler), ``enqueue_us`` = host time per call of 100
+calls with no wait inside; the same three for the library call. ``bound_ms``
 is the least time the card could take: the larger of (bytes the function must
 move: each input read once, each output written once) / 3.35e12 B/s and
 (float32 operations outside the tensor cores) / 67e12 flop/s — the published
@@ -76,7 +81,6 @@ ZERO_GRADIENT_BY_CONSTRUCTION = {"pose_net.conv1.0.bias"}
 PLANES = [(192, 640), (96, 320), (48, 160), (24, 80)]
 SMOKE_B, SMOKE_N = 16, 2
 MOTION_HW = (128, 416)  # projects/MotionLearning/configs/Base.yaml: Resize IMG_H, IMG_W
-MONODEPTH2_KERNELS = ("warp_bilinear_fwd", "photometric_map_fwd", "warp_bilinear_bwd_coords", "photometric_map_bwd")
 
 
 def emit(obj) -> None:
@@ -107,6 +111,45 @@ def cuda_ms(fn, iters: int = 10, warmup: int = 2) -> float:
     stop.record()
     torch.cuda.synchronize()
     return start.elapsed_time(stop) / iters
+
+
+ENQUEUE_CALLS = 100
+
+
+def measure(fn, iters: int = 10) -> dict:
+    """Three times of one call of ``fn``, which launches work on the card:
+
+    - ``ms``: CUDA events around ``iters`` back-to-back calls (``cuda_ms``). Below
+      about 0.04 ms this is the host's enqueue cost, not the device's time;
+    - ``device_ms``: the device time per call of every kernel the calls launched,
+      from torch.profiler's kernel rows over ``iters`` calls (``device_kernels``
+      names them, with their launch counts);
+    - ``enqueue_us``: host wall time per call of ``ENQUEUE_CALLS`` calls with no
+      wait inside (the clock stops before the one synchronize at the end)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    ms = cuda_ms(fn, iters)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    rows = [(e.key, e.count, e.self_device_time_total / 1e3) for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(ENQUEUE_CALLS):
+        fn()
+    enqueue_us = (time.perf_counter() - t0) * 1e6 / ENQUEUE_CALLS
+    torch.cuda.synchronize()
+    return {"ms": ms, "device_ms": sum(r[2] for r in rows) / iters, "enqueue_us": enqueue_us,
+            "device_kernels": [[k[:60], c] for k, c, _ in rows]}
+
+
+def measure_into(rec: dict, fn, prefix: str = "") -> None:
+    """``measure(fn)`` into ``rec``; with ``prefix="library_"`` the keys become
+    ``library_ms``, ``library_device_ms``, ``library_enqueue_us``, ..."""
+    rec.update({prefix + k: v for k, v in measure(fn).items()})
 
 
 def warp_bound(B, C, h, w, elem_bytes):
@@ -191,16 +234,27 @@ def make_batch(seed: int, B: int, H: int, W: int, N: int, device, smooth: bool =
     return {k: torch.from_numpy(np.ascontiguousarray(v)).to(device) for k, v in batch.items()}
 
 
-def synthesis_coords(seed: int, B: int, h: int, w: int, device):
-    """Pixel coordinates of a real view synthesis: seeded depth and pose."""
+def synthesis_coords(seed: int, B: int, h: int, w: int, device, smooth_depth: bool = False):
+    """Pixel coordinates of a real view synthesis: seeded depth and pose.
+
+    The depth is white noise in [0.5, 30.5) per pixel (neighbouring pixels land up
+    to a few hundred pixels apart: the gathers scatter over the whole plane) or,
+    with ``smooth_depth``, a coarse random grid (one value per 16 pixels)
+    interpolated bilinearly, as a depth net's upsampled output is smooth
+    (neighbouring pixels land next to each other)."""
     import numpy as np
     import torch
+    import torch.nn.functional as F
 
     from simpledepthestimation_tpu_torch.geometry.camera import view_synthesis
     from simpledepthestimation_tpu_torch.geometry.pose import pose_vec2mat
 
     rng = np.random.RandomState(seed)
-    depth = torch.from_numpy((0.5 + 30.0 * rng.rand(B, 1, h, w)).astype(np.float32)).to(device)
+    if smooth_depth:
+        low = torch.from_numpy(rng.rand(B, 1, h // 16 + 2, w // 16 + 2).astype(np.float32)).to(device)
+        depth = 0.5 + 30.0 * F.interpolate(low, size=(h, w), mode="bilinear", align_corners=False)
+    else:
+        depth = torch.from_numpy((0.5 + 30.0 * rng.rand(B, 1, h, w)).astype(np.float32)).to(device)
     vec = np.concatenate([0.3 * rng.randn(B, 3), 0.02 * rng.randn(B, 3)], 1).astype(np.float32)
     T = pose_vec2mat(torch.from_numpy(vec).to(device))
     K = torch.tensor(
@@ -234,11 +288,10 @@ def _check_warp(image, x, y, tol, label, timed: bool):
     }
     if timed:
         grid = torch.stack([2.0 * x / (W - 1.0) - 1.0, 2.0 * y / (H - 1.0) - 1.0], dim=-1).to(image.dtype)
-        rec["ms"] = cuda_ms(lambda: warp_bilinear(image, x, y))
+        measure_into(rec, lambda: warp_bilinear(image, x, y))
         rec["plain_ms"] = cuda_ms(lambda: warp_bilinear_plain(image, x, y), iters=3, warmup=1)
-        rec["library_ms"] = cuda_ms(
-            lambda: F.grid_sample(image, grid, mode="bilinear", padding_mode="zeros", align_corners=True)
-        )
+        measure_into(rec, lambda: F.grid_sample(image, grid, mode="bilinear", padding_mode="zeros",
+                                                align_corners=True), "library_")
     rec["launches"] = warp_bilinear.launches - before
     emit(rec)
     if not (err <= tol):
@@ -266,7 +319,7 @@ def _check_photo(a, b, tol, label, timed: bool):
         "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
     }
     if timed:
-        rec["ms"] = cuda_ms(lambda: photometric_map(a, b, 0.85, 1e-4, 9e-4))
+        measure_into(rec, lambda: photometric_map(a, b, 0.85, 1e-4, 9e-4))
         rec["plain_ms"] = cuda_ms(lambda: photometric_map_plain(a, b, 0.85, 1e-4, 9e-4), iters=3, warmup=1)
     rec["launches"] = photometric_map.launches - before
     emit(rec)
@@ -301,7 +354,7 @@ def _check_warp_bwd(image, x, y, ct, tol, label, timed: bool):
         "tol": tol * scale, "bound_ms": bound_ms, "bound_by": bound_by,
     }
     if timed:
-        rec["ms"] = cuda_ms(lambda: warp_coord_grad(image, x, y, ct))
+        measure_into(rec, lambda: warp_coord_grad(image, x, y, ct))
         rec["plain_ms"] = cuda_ms(lambda: warp_coord_grad_plain(image, x, y, ct), iters=3, warmup=1)
         # one PyTorch call for the same function: grid_sample's backward with respect
         # to the grid (its gradient is per unit of normalised coordinate: a constant
@@ -309,7 +362,7 @@ def _check_warp_bwd(image, x, y, ct, tol, label, timed: bool):
         grid = torch.stack([2.0 * x / (W - 1.0) - 1.0, 2.0 * y / (H - 1.0) - 1.0], dim=-1)
         grid = grid.to(image.dtype).requires_grad_()
         sampled = F.grid_sample(image, grid, mode="bilinear", padding_mode="zeros", align_corners=True)
-        rec["library_ms"] = cuda_ms(lambda: torch.autograd.grad(sampled, grid, ct, retain_graph=True))
+        measure_into(rec, lambda: torch.autograd.grad(sampled, grid, ct, retain_graph=True), "library_")
     rec["launches"] = warp_bilinear.bwd_launches - before
     emit(rec)
     if not (err <= tol * scale):
@@ -350,13 +403,13 @@ def _check_warp_bwd_image(x, y, ct, Hi, Wi, label, timed: bool):
         "scatter_abs_ct_max": scale.max().item(), "share_on_border": on_border, "bound_ms": bound_ms, "bound_by": bound_by,
     }
     if timed:
-        rec["ms"] = cuda_ms(lambda: warp_image_grad(x, y, ct, Hi, Wi))
+        measure_into(rec, lambda: warp_image_grad(x, y, ct, Hi, Wi))
         rec["plain_ms"] = cuda_ms(lambda: warp_image_grad_plain(x, y, ct, Hi, Wi), iters=3, warmup=1)
         # one PyTorch call for the same function: grid_sample's backward with respect to its input
         grid = torch.stack([2.0 * x / (Wi - 1.0) - 1.0, 2.0 * y / (Hi - 1.0) - 1.0], dim=-1).to(ct.dtype)
         zeros = torch.zeros((B, C, Hi, Wi), device=ct.device, dtype=ct.dtype)
-        rec["library_ms"] = cuda_ms(lambda: torch.ops.aten.grid_sampler_2d_backward(
-            ct, zeros, grid, 0, 0, True, [True, False]))
+        measure_into(rec, lambda: torch.ops.aten.grid_sampler_2d_backward(
+            ct, zeros, grid, 0, 0, True, [True, False]), "library_")
     rec["launches"] = warp_bilinear.bwd_image_launches - before
     emit(rec)
     if not (excess <= K5_ATOL):
@@ -393,7 +446,7 @@ def _check_photo_bwd(a, b, g, tol, label, timed: bool, both: bool):
         "tol": tol * scale, "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
     }
     if timed:
-        rec["ms"] = cuda_ms(lambda: photometric_vjp(a, b, g, 0.85, 1e-4, 9e-4, need_a=True, need_b=both))
+        measure_into(rec, lambda: photometric_vjp(a, b, g, 0.85, 1e-4, 9e-4, need_a=True, need_b=both))
         rec["plain_ms"] = cuda_ms(lambda: photometric_vjp_plain(a, b, g, 0.85, 1e-4, 9e-4), iters=3, warmup=1)
     rec["launches"] = photometric_map.bwd_launches - before
     emit(rec)
@@ -436,9 +489,61 @@ def _check_kernel_chain(image, x, y, target, weight):
         raise AssertionError(f"the kernels' chained gradient disagrees with autograd of the plain versions: {rec}")
 
 
+def host_path_costs(device, calls: int = 2000) -> dict:
+    """Host time per call (µs, ``calls`` calls, no wait inside) of the steps of
+    K1's host path at the smallest MonoDepth2 plane, where the host's cost is the
+    whole of a call's time: the library lookup, the stream handle (as a
+    ``torch.cuda.Stream`` and raw), the output allocation (two ways), the bare
+    ctypes launch, the whole wrapper, and ``F.grid_sample`` beside it. The
+    wrapper's checks are what the whole call costs beyond its steps."""
+    import torch
+    import torch.nn.functional as F
+
+    from simpledepthestimation_tpu_torch.ops import cuda_lib
+    from simpledepthestimation_tpu_torch.ops.warp import warp_bilinear
+
+    B, C, h, w = 2 * SMOKE_B, 3, *PLANES[-1]
+    image = torch.rand(B, C, h, w, device=device)
+    x, y = torch.rand(B, h, w, device=device) * w, torch.rand(B, h, w, device=device) * h
+    grid = torch.stack([2.0 * x / (w - 1.0) - 1.0, 2.0 * y / (h - 1.0) - 1.0], dim=-1)
+    out = torch.empty_like(image)
+    lib = cuda_lib.load()
+    stream = torch.cuda.current_stream().cuda_stream
+    # the C entry point gained the device index before the stream; an older tree's has none
+    args = (image.data_ptr(), x.data_ptr(), y.data_ptr(), out.data_ptr(), B, C, h, w, h, w, 0,
+            *((device.index or 0,) if len(lib.sde_warp_bilinear_fwd.argtypes) == 13 else ()), stream)
+
+    def per_call_us(fn):
+        for _ in range(20):
+            fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        us = (time.perf_counter() - t0) * 1e6 / calls
+        torch.cuda.synchronize()
+        return us
+
+    costs = {
+        "cuda_lib_load": per_call_us(cuda_lib.load),
+        "current_stream_object": per_call_us(lambda: torch.cuda.current_stream().cuda_stream),
+        "raw_stream_handle": per_call_us(lambda: torch._C._cuda_getCurrentRawStream(0)),
+        "torch_empty_output": per_call_us(lambda: torch.empty((B, C, h, w), dtype=image.dtype, device=image.device)),
+        "new_empty_output": per_call_us(lambda: image.new_empty((B, C, h, w))),
+        "ctypes_launch_alone": per_call_us(lambda: lib.sde_warp_bilinear_fwd(*args)),
+        "warp_bilinear_whole": per_call_us(lambda: warp_bilinear(image, x, y)),
+        "grid_sample_whole": per_call_us(lambda: F.grid_sample(image, grid, mode="bilinear", padding_mode="zeros",
+                                                               align_corners=True)),
+    }
+    emit({"kernel": "warp_bilinear_fwd", "case": "host_path_costs_us", "shape": [B, C, h, w], "calls": calls, **costs})
+    return costs
+
+
 def phase_kernels(device):
     import numpy as np
     import torch
+
+    from simpledepthestimation_tpu_torch.ops.photometric import photometric_vjp
 
     def record(rec):
         if rec["dtype"] == "float32":
@@ -487,6 +592,10 @@ def phase_kernels(device):
             rec_bwd = check_warp_bwd(image, x, y, ct, BWD_RTOL, "view_synthesis" + tag, timed=True)
             if (h, w) == PLANES[0] and dtype == torch.float32:
                 flagship["warp"], flagship["warp_bwd"] = rec, rec_bwd
+            if (h, w) == PLANES[0]:
+                image_s, xs, ys = synthesis_coords(13 + h, NB, h, w, device, smooth_depth=True)
+                check_warp(image_s.to(dtype), xs, ys, warp_tol, "view_synthesis_smooth_depth" + tag, timed=True)
+                check_warp_bwd(image_s.to(dtype), xs, ys, ct, BWD_RTOL, "view_synthesis_smooth_depth" + tag, timed=True)
             # uniform coordinates reaching one whole plane outside on every side
             xu = (rand(NB, h, w) * 3.0 - 1.0) * w
             yu = (rand(NB, h, w) * 3.0 - 1.0) * h
@@ -499,22 +608,46 @@ def phase_kernels(device):
             # an expanded (stride-0) cotangent, as a mean's backward hands over
             ct = (rand(2, C, 1, 1) - 0.5).to(dtype).expand(2, C, oh, ow)
             check_warp_bwd(image, x, y, ct, BWD_RTOL, label + tag, timed=False)
+        # the forward's edge cases: rows whose width is not a multiple of 4 and planes of
+        # an odd number of pixels (no 16-byte row access lines up), each channel count
+        # from 1 to 5, output planes of another size than the image's, exact edges
+        for C in (1, 2, 3, 4, 5):
+            for (ih, iw), (oh, ow) in (((37, 83), (37, 83)), ((21, 46), (21, 46)), ((37, 83), (19, 45)),
+                                       ((16, 64), (16, 64))):
+                image = rand(3, C, ih, iw).to(dtype)
+                x, y = rand(3, oh, ow) * (iw + 4) - 2, rand(3, oh, ow) * (ih + 4) - 2
+                x[0, :3], y[1, :, :3] = iw - 1.0, ih - 1.0
+                check_warp(image, x, y, warp_tol, f"edge_C{C}_{ih}x{iw}_to_{oh}x{ow}" + tag, timed=False)
 
+        # the map of the N·B warped candidates against the target (the main path since the
+        # identity candidates got their own call: [32,...]) and the [2N·B,...] stack of
+        # warped and identity candidates in one call, as the main path ran it before
         for h, w in PLANES:
-            a, b = rand(2 * NB, 3, h, w), rand(2 * NB, 3, h, w)
-            b = 0.8 * a + 0.2 * b  # correlated, as a warped frame is with its target
-            g = rand(2 * NB, 1, h, w)
-            rec = check_photo(a.to(dtype), b.to(dtype), F32_TOL, "flagship" + tag, timed=True)
-            rec_bwd = check_photo_bwd(a.to(dtype), b.to(dtype), g, vjp_tol, "flagship" + tag, timed=True, both=False)
-            check_photo_bwd(a.to(dtype), b.to(dtype), g, vjp_tol, "flagship" + tag, timed=True, both=True)
-            if (h, w) == PLANES[0] and dtype == torch.float32:
-                flagship["photo"], flagship["photo_bwd"] = rec, rec_bwd
+            for planes, label in ((NB, "main_path"), (2 * NB, "flagship")):
+                a, b = rand(planes, 3, h, w), rand(planes, 3, h, w)
+                b = 0.8 * a + 0.2 * b  # correlated, as a warped frame is with its target
+                g = rand(planes, 1, h, w)
+                rec = check_photo(a.to(dtype), b.to(dtype), F32_TOL, label + tag, timed=True)
+                rec_bwd = check_photo_bwd(a.to(dtype), b.to(dtype), g, vjp_tol, label + tag, timed=True, both=False)
+                if planes == 2 * NB:
+                    check_photo_bwd(a.to(dtype), b.to(dtype), g, vjp_tol, label + tag, timed=True, both=True)
+                elif (h, w) == PLANES[0] and dtype == torch.float32:
+                    flagship["photo"], flagship["photo_bwd"] = rec, rec_bwd
         for shape, label, timed in (((2, 3, 37, 83), "unaligned", False), ((1, 2, 2, 2), "smallest", False),
+                                    ((2, 3, 3, 3), "three", False), ((1, 1, 2, 5), "two_by_five", False),
                                     ((1, 3, 768, 1920), "large_plane", True)):
             a, b = rand(*shape).to(dtype), rand(*shape).to(dtype)
             check_photo(a, b, F32_TOL, label + tag, timed=timed)
             g = rand(shape[0], 1, 1, 1).expand(shape[0], 1, *shape[2:])  # expanded, as above
             check_photo_bwd(a, b, g, vjp_tol, label + tag, timed=timed, both=True)
+        # a tie: a == b gives exactly zero gradient (the clip is at 0, sign(0) = 0)
+        a = rand(2, 3, 37, 83).to(dtype)
+        ties = photometric_vjp(a, a.clone(), rand(2, 1, 37, 83), 0.85, 1e-4, 9e-4)
+        nonzero = sum(int(torch.count_nonzero(t)) for t in ties)
+        emit({"kernel": "photometric_map_bwd", "case": "tie_a_equals_b" + tag, "shape": [2, 3, 37, 83],
+              "nonzero_gradients": nonzero})
+        if nonzero:
+            raise AssertionError(f"photometric_map_bwd gave {nonzero} non-zero gradients at a == b")
 
     # K5 at the MotionLearning step's shape: the cycle loss warps the [2B,3,H,W] reverse
     # translation field at the RGB-D warp's coordinates, which view synthesis clamps to the
@@ -553,6 +686,7 @@ def phase_kernels(device):
     h, w = PLANES[1]
     image, x, y = synthesis_coords(5, 4, h, w, device)
     _check_kernel_chain(image, x, y, 0.8 * image + 0.2 * rand(4, 3, h, w), rand(4, 1, h, w))
+    host_path_costs(device)
     for rec in flagship.values():
         rec["max_abs_err"] = worst[rec["kernel"]]
     return flagship
@@ -630,8 +764,9 @@ def phase_main_path(device):
         with torch.no_grad():
             losses, train_ms = timed(lambda: model(batch, train=True))
         d1, d2 = warp_bilinear.launches - k1, photometric_map.launches - k2
-        if (d1, d2) != (4, 4):
-            raise AssertionError(f"train=True forward launched K1 {d1}x and K2 {d2}x, expected 4 and 4")
+        # per scale one warp and two maps (the warped candidates, then the identity ones)
+        if (d1, d2) != (4, 8):
+            raise AssertionError(f"train=True forward launched K1 {d1}x and K2 {d2}x, expected 4 and 8")
         vals = {k: v.item() for k, v in losses.items()}
         if set(vals) != {"rec_loss", "smooth_loss"} or not all(v == v and abs(v) < 1e6 for v in vals.values()):
             raise AssertionError(f"loss dict is wrong or not finite: {vals}")
@@ -727,8 +862,11 @@ def phase_train_path(device):
     fixed = make_batch(300, B, H, W, N, device, smooth=True)
     fresh = [make_batch(301 + i, B, H, W, N, device, smooth=True) for i in range(TRAIN_FRESH_STEPS)]
 
-    # exactly 4 launches of each of K1-K4 per step (one per scale), no K5
-    expected = {**{k: (4, 4) for k in MONODEPTH2_KERNELS}, "warp_bilinear_bwd_image": (0, 0)}
+    # per step and scale one launch of K1, K3 and K4 (the VJP of the warped candidates' map
+    # only) and two of K2 (the warped and the identity candidates' maps); no K5
+    per_step = {"warp_bilinear_fwd": 4, "photometric_map_fwd": 8, "warp_bilinear_bwd_coords": 4,
+                "photometric_map_bwd": 4}
+    expected = {**{k: (n, n) for k, n in per_step.items()}, "warp_bilinear_bwd_image": (0, 0)}
     records, launches, steady_ms = _drive_train_step(
         state, step, [fixed] * TRAIN_FIXED_STEPS + fresh, fresh, expected,
         {"total_loss", "grad_norm", "rec_loss", "smooth_loss"}, exempt=ZERO_GRADIENT_BY_CONSTRUCTION)
@@ -751,7 +889,7 @@ def phase_train_path(device):
     emit({
         "phase": "train_path", "model": "MonoDepth2-R18", "batch": B, "hw": [H, W], "contexts": N,
         "compute_dtype": str(cfg.TPU.COMPUTE_DTYPE), "optimizer": str(cfg.SOLVER.OPT), "lr": lrs,
-        "steps": records, "launches": launches, "launches_per_step": 4,
+        "steps": records, "launches": launches, "launches_per_step": per_step,
         "steady_step_ms": steady_ms, "steady_images_per_s": B / steady_ms * 1e3,
         "peak_mem_bytes": torch.cuda.max_memory_allocated(),
         "depth_after": [lo, hi],
@@ -1010,6 +1148,11 @@ def main() -> int:
           "seconds": cuda_lib.build_seconds, "built_now": cuda_lib.build_seconds is not None})
 
     flagship = phase_kernels(device)
+    if "--kernels-only" in sys.argv[1:]:
+        # the kernels' cases and times alone, e.g. of another tree's kernels with this script
+        # copied into its root: no main path, so no closing line
+        emit({"phase": "done", "kernels_only": True, "seconds": time.perf_counter() - t_start})
+        return 0
     by_path = {"main_path": phase_main_path(device), "train_path": phase_train_path(device),
                "motion_train_path": phase_motion_train_path(device)}
     phase_cpu_agreement(device)
@@ -1042,6 +1185,7 @@ def main() -> int:
             "max_abs_err": rec["max_abs_err"], "ms": rec["ms"],
             "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"], "bound_by": rec["bound_by"],
             "library_ms": rec["library_ms"], "shape": rec["shape"],
+            **{k: rec.get(k) for k in ("device_ms", "enqueue_us", "library_device_ms", "library_enqueue_us")},
         })
     emit({"kernels": kernels})
     emit({"phase": "done", "seconds": time.perf_counter() - t_start})

@@ -18,11 +18,22 @@
 // and per channel reads about one image value (the four corners of neighbouring
 // threads overlap and are served by L1/L2) and writes one: B*H*W*(8 + 2*s*C)
 // bytes for an s-byte image type, against ~10 flops per channel.
-// Design: one thread per output pixel, so the coordinate loads and the output
-// stores are coalesced and the weights and masks are computed once for all
-// channels; the gathers of one warp fall on a few neighbouring rows of the
-// planar image wherever the warp field is smooth. Arithmetic is float32 for
-// both image types. No shared memory, no synchronisation.
+// Design: one thread per output pixel, and one block per 8 x 32 tile of
+// output pixels of one plane. A warp reads 32 consecutive coordinates and
+// writes 32 consecutive results per channel (128 bytes each); the block's
+// gathers fall on a 2D neighbourhood of the source, which L1 serves well: with
+// a smooth warp field the corner rows of one output row are the next output
+// row's too. The corner weights and masks are computed once for all channels,
+// with each corner's mask folded into its x-weight (for a finite image the
+// same bits as zeroing the masked value).
+// 8 blocks of 256 threads per SM: the gathers' latency is hidden by
+// occupancy. Two alternatives measured slower on the card: 4 pixels a thread
+// with 16-byte coordinate loads and stores and all 16*C corner loads in flight
+// before the first store (90-128 registers, 2 blocks per SM), and gathers
+// from the block's source box staged in shared memory (the box must be copied
+// before any gather starts and, for view-synthesis coordinates, often does not
+// fit). Arithmetic is float32 for both image types. No shared memory, no
+// synchronisation.
 //
 // K3, backward in the coordinates: with v00..v11 the four masked corner values
 // of channel c and wx, wy the fractions,
@@ -52,13 +63,12 @@
 // on one address (coordinates clamped to the border) the atomics to that
 // address serialise.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
+#include "common.cuh"
 
 namespace {
 
-__device__ __forceinline__ float ld(const float* p) { return __ldg(p); }
-__device__ __forceinline__ float ld(const __nv_bfloat16* p) { return __bfloat162float(*p); }
+using sde::ld;
+
 __device__ __forceinline__ void st(float* p, float v) { *p = v; }
 __device__ __forceinline__ void st(__nv_bfloat16* p, float v) { *p = __float2bfloat16(v); }
 
@@ -99,28 +109,52 @@ __device__ __forceinline__ Corners corners_at(float xv, float yv, int Hi, int Wi
   return k;
 }
 
+// One output pixel of the forward: the corners' offsets into a plane (clamped,
+// so always loadable) and the x-weights with each corner's mask folded in.
+struct FwdPixel {
+  int o00, o01, o10, o11;  // the wrapper keeps Hi*Wi below 2^31
+  float a00, a01, a10, a11, wy;
+};
+
+__device__ __forceinline__ FwdPixel fwd_pixel(float xv, float yv, int Hi, int Wi) {
+  const Corners k = corners_at(xv, yv, Hi, Wi);
+  FwdPixel p;
+  p.o00 = (int)k.o00;
+  p.o01 = (int)k.o01;
+  p.o10 = (int)k.o10;
+  p.o11 = (int)k.o11;
+  p.a00 = k.m00 ? 1.0f - k.wx : 0.0f;
+  p.a01 = k.m01 ? k.wx : 0.0f;
+  p.a10 = k.m10 ? 1.0f - k.wx : 0.0f;
+  p.a11 = k.m11 ? k.wx : 0.0f;
+  p.wy = k.wy;
+  return p;
+}
+
+// the forward's block: a tile of kFwdRows x kFwdCols output pixels of one plane
+constexpr int kFwdRows = 8, kFwdCols = kThreads / kFwdRows;
+
 template <typename T>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads, 8)
 warp_bilinear_fwd_kernel(const T* __restrict__ img, const float* __restrict__ x,
                          const float* __restrict__ y, T* __restrict__ out,
-                         int C, int Hi, int Wi, long long out_plane) {
-  const long long pix = (long long)blockIdx.x * kThreads + threadIdx.x;
-  if (pix >= out_plane) return;
-  const int b = blockIdx.y;
-  const Corners k = corners_at(x[b * out_plane + pix], y[b * out_plane + pix], Hi, Wi);
-  const float wx = k.wx, wy = k.wy;
+                         int C, int Hi, int Wi, int Ho, int Wo) {
+  const int row = blockIdx.y * kFwdRows + threadIdx.x / kFwdCols;
+  const int col = blockIdx.x * kFwdCols + threadIdx.x % kFwdCols;
+  if (row >= Ho || col >= Wo) return;
+  const int b = blockIdx.z;
+  const long long out_plane = (long long)Ho * Wo;
+  const long long pix = (long long)row * Wo + col;
+  const FwdPixel p = fwd_pixel(__ldg(x + b * out_plane + pix), __ldg(y + b * out_plane + pix), Hi, Wi);
   const long long in_plane = (long long)Hi * Wi;
-
   const T* src = img + (long long)b * C * in_plane;
   T* dst = out + (long long)b * C * out_plane + pix;
   for (int c = 0; c < C; ++c) {
-    const float v00 = k.m00 ? ld(src + k.o00) : 0.0f;
-    const float v01 = k.m01 ? ld(src + k.o01) : 0.0f;
-    const float v10 = k.m10 ? ld(src + k.o10) : 0.0f;
-    const float v11 = k.m11 ? ld(src + k.o11) : 0.0f;
-    const float top = v00 * (1.0f - wx) + v01 * wx;
-    const float bot = v10 * (1.0f - wx) + v11 * wx;
-    st(dst, top * (1.0f - wy) + bot * wy);
+    const float v00 = ld(src + p.o00), v01 = ld(src + p.o01);
+    const float v10 = ld(src + p.o10), v11 = ld(src + p.o11);
+    const float top = v00 * p.a00 + v01 * p.a01;
+    const float bot = v10 * p.a10 + v11 * p.a11;
+    st(dst, top * (1.0f - p.wy) + bot * p.wy);
     src += in_plane;
     dst += out_plane;
   }
@@ -193,22 +227,23 @@ warp_bilinear_bwd_image_kernel(const T* __restrict__ ct, const float* __restrict
 
 extern "C" {
 
-// Launches on `stream`, does not synchronise, allocates nothing.
-// Returns cudaGetLastError() (0 = launched).
+// Launches on `stream` of CUDA device `device` (made current for the launch,
+// the caller's device restored after it), does not synchronise, allocates
+// nothing. Returns cudaGetLastError() (0 = launched). Requires Hi*Wi < 2^31.
 int sde_warp_bilinear_fwd(const void* img, const void* x, const void* y, void* out,
                           int B, int C, int Hi, int Wi, int Ho, int Wo,
-                          int is_bf16, void* stream) {
-  const long long out_plane = (long long)Ho * Wo;
-  dim3 grid((unsigned)((out_plane + kThreads - 1) / kThreads), (unsigned)B);
+                          int is_bf16, int device, void* stream) {
+  sde::DeviceGuard guard(device);
+  dim3 grid((unsigned)((Wo + kFwdCols - 1) / kFwdCols), (unsigned)((Ho + kFwdRows - 1) / kFwdRows),
+            (unsigned)B);
   cudaStream_t s = (cudaStream_t)stream;
   if (is_bf16) {
     warp_bilinear_fwd_kernel<__nv_bfloat16><<<grid, kThreads, 0, s>>>(
-        (const __nv_bfloat16*)img, (const float*)x, (const float*)y,
-        (__nv_bfloat16*)out, C, Hi, Wi, out_plane);
+        (const __nv_bfloat16*)img, (const float*)x, (const float*)y, (__nv_bfloat16*)out, C, Hi, Wi,
+        Ho, Wo);
   } else {
     warp_bilinear_fwd_kernel<float><<<grid, kThreads, 0, s>>>(
-        (const float*)img, (const float*)x, (const float*)y, (float*)out, C, Hi, Wi,
-        out_plane);
+        (const float*)img, (const float*)x, (const float*)y, (float*)out, C, Hi, Wi, Ho, Wo);
   }
   return (int)cudaGetLastError();
 }
@@ -217,7 +252,8 @@ int sde_warp_bilinear_fwd(const void* img, const void* x, const void* y, void* o
 // dy are float32. Same launch contract.
 int sde_warp_bilinear_bwd_coords(const void* img, const void* x, const void* y, const void* ct,
                                  void* dx, void* dy, int B, int C, int Hi, int Wi, int Ho,
-                                 int Wo, int is_bf16, void* stream) {
+                                 int Wo, int is_bf16, int device, void* stream) {
+  sde::DeviceGuard guard(device);
   const long long out_plane = (long long)Ho * Wo;
   dim3 grid((unsigned)((out_plane + kThreads - 1) / kThreads), (unsigned)B);
   cudaStream_t s = (cudaStream_t)stream;
@@ -238,7 +274,8 @@ int sde_warp_bilinear_bwd_coords(const void* img, const void* x, const void* y, 
 // coordinates x, y [B,Ho,Wo]. Same launch contract.
 int sde_warp_bilinear_bwd_image(const void* ct, const void* x, const void* y, void* d_img,
                                 int B, int C, int Hi, int Wi, int Ho, int Wo, int is_bf16,
-                                void* stream) {
+                                int device, void* stream) {
+  sde::DeviceGuard guard(device);
   const long long out_plane = (long long)Ho * Wo;
   dim3 grid((unsigned)((out_plane + kThreads - 1) / kThreads), (unsigned)B);
   cudaStream_t s = (cudaStream_t)stream;

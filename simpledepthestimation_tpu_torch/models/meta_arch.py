@@ -122,22 +122,41 @@ class MonoDepth2Model(nn.Module):
             variance_focus=float(loss.get("VARIANCE_FOCUS", 0.85)),
         )
 
-    def _photometric(self, frame_A: torch.Tensor, sampled_B: torch.Tensor, n_groups: int = 1) -> torch.Tensor:
-        """α·SSIM + (1−α)·L1 per-pixel map [G·B,1,h,w] with optional mean+λσ clip.
-
-        ``n_groups``: the leading batch dim stacks that many independent maps
-        (the batched per-scale evaluation); the clip statistics are taken per
-        group, with the unbiased standard deviation."""
+    def _photometric_map(self, frame_A: torch.Tensor, sampled_B: torch.Tensor) -> torch.Tensor:
+        """α·SSIM + (1−α)·L1 per-pixel map [G·B,1,h,w], before any clip."""
         if self.ssim_weight > 0.0:
-            photo = photometric_map(sampled_B, frame_A, self.ssim_weight, self.C1, self.C2)
-        else:
-            photo = (sampled_B - frame_A).abs().mean(dim=1, keepdim=True)
+            return photometric_map(sampled_B, frame_A, self.ssim_weight, self.C1, self.C2)
+        return (sampled_B - frame_A).abs().mean(dim=1, keepdim=True)
+
+    def _clip(self, photo: torch.Tensor, n_groups: int = 1) -> torch.Tensor:
+        """The optional mean+λσ clip of a map [G·B,1,h,w]: ``n_groups``
+        independent maps stacked on the leading dim (the batched per-scale
+        evaluation), each clipped by its own statistics, with the unbiased
+        standard deviation."""
         if self.clip_loss > 0.0:
             grouped = photo.reshape(n_groups, -1)
             cap = grouped.mean(dim=1) + self.clip_loss * grouped.std(dim=1)  # std: unbiased
             cap = cap.repeat_interleave(photo.shape[0] // n_groups).reshape(-1, 1, 1, 1)
             photo = torch.minimum(photo, cap)
         return photo
+
+    def _scale_maps(self, resized_image: torch.Tensor, sampled: torch.Tensor,
+                    resized_targets: torch.Tensor, N: int) -> torch.Tensor:
+        """One scale's photometric maps [kN·B,1,h,w], clipped per group of B:
+        the N warped contexts, then (automask) the N identity reprojections.
+
+        The two halves are two calls of the map against one ``ref``: the
+        identity candidates need no gradient, so autograd records no backward
+        for theirs and the map's VJP runs on the N·B warped planes only (one
+        map over the concatenated 2N·B candidates would compute the identity
+        half's gradient and throw it away). The clip's statistics are per
+        group, so concatenating the two maps before it gives the same map."""
+        B = resized_image.shape[0]
+        ref = resized_image.repeat(N, 1, 1, 1)
+        photo = self._photometric_map(ref, sampled)
+        if self.automask:
+            photo = torch.cat([photo, self._photometric_map(ref, resized_targets)], dim=0)
+        return self._clip(photo, n_groups=photo.shape[0] // B)
 
     def forward(self, batch: Dict[str, torch.Tensor], train: bool = False,
                 generator: Optional[torch.Generator] = None) -> Dict[str, torch.Tensor]:
@@ -165,8 +184,9 @@ class MonoDepth2Model(nn.Module):
         photo_per_scale = []
 
         # Per scale, all N context warps run as ONE view_synthesis on an [N·B]
-        # batch, and all 2N photometric maps (warped + identity reprojection)
-        # as ONE map on [2N·B]: one launch of each kernel per scale.
+        # batch, and the N warped and (automask) N identity photometric maps as
+        # two maps on [N·B] each (see _scale_maps): one launch of the warp and
+        # of the map's VJP per scale, two of the map.
         poses_cat = torch.cat(poses, dim=0)  # [N·B,4,4], context-major
         rot = poses_cat[:, :3, :3]
         trans = poses_cat[:, :3, 3:4]
@@ -188,15 +208,7 @@ class MonoDepth2Model(nn.Module):
                 trans,
             )
 
-            if self.automask:
-                candidates = torch.cat([sampled, resized_targets], dim=0)
-                ref = resized_image.repeat(2 * N, 1, 1, 1)
-            else:
-                candidates = sampled
-                ref = resized_image.repeat(N, 1, 1, 1)
-
-            n_groups = candidates.shape[0] // B
-            photo = self._photometric(ref, candidates, n_groups=n_groups)  # [kN·B,1,h,w]
+            photo = self._scale_maps(resized_image, sampled, resized_targets, N)  # [kN·B,1,h,w]
             maps = photo.reshape(-1, B, 1, h, w)
 
             if self.photometric_reduce == "min":

@@ -23,6 +23,8 @@ import threading
 import time
 from typing import List, Optional
 
+import torch
+
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
 NVCC_FLAGS = [
@@ -99,28 +101,33 @@ def _build(lib_path: str, srcs: List[str], verbose: bool) -> None:
 
 def _declare(lib: ctypes.CDLL) -> None:
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    # int sde_warp_bilinear_fwd(img, x, y, out, B, C, Hi, Wi, Ho, Wo, is_bf16, stream)
-    lib.sde_warp_bilinear_fwd.argtypes = [p, p, p, p, i, i, i, i, i, i, i, p]
+    # every entry point ends in (device, stream): the CUDA device to launch on and its stream
+    # int sde_warp_bilinear_fwd(img, x, y, out, B, C, Hi, Wi, Ho, Wo, is_bf16, device, stream)
+    lib.sde_warp_bilinear_fwd.argtypes = [p, p, p, p, i, i, i, i, i, i, i, i, p]
     lib.sde_warp_bilinear_fwd.restype = i
-    # int sde_photometric_map_fwd(a, b, out, B, C, H, W, alpha, C1, C2, is_bf16, stream)
-    lib.sde_photometric_map_fwd.argtypes = [p, p, p, i, i, i, i, f, f, f, i, p]
+    # int sde_photometric_map_fwd(a, b, out, B, C, H, W, alpha, C1, C2, is_bf16, device, stream)
+    lib.sde_photometric_map_fwd.argtypes = [p, p, p, i, i, i, i, f, f, f, i, i, p]
     lib.sde_photometric_map_fwd.restype = i
-    # int sde_warp_bilinear_bwd_coords(img, x, y, ct, dx, dy, B, C, Hi, Wi, Ho, Wo, is_bf16, stream)
-    lib.sde_warp_bilinear_bwd_coords.argtypes = [p, p, p, p, p, p, i, i, i, i, i, i, i, p]
+    # int sde_warp_bilinear_bwd_coords(img, x, y, ct, dx, dy, B, C, Hi, Wi, Ho, Wo, is_bf16, device, stream)
+    lib.sde_warp_bilinear_bwd_coords.argtypes = [p, p, p, p, p, p, i, i, i, i, i, i, i, i, p]
     lib.sde_warp_bilinear_bwd_coords.restype = i
-    # int sde_photometric_map_bwd(a, b, g, g_a, g_b, B, C, H, W, alpha, C1, C2, is_bf16, stream)
-    lib.sde_photometric_map_bwd.argtypes = [p, p, p, p, p, i, i, i, i, f, f, f, i, p]
+    # int sde_photometric_map_bwd(a, b, g, g_a, g_b, B, C, H, W, alpha, C1, C2, is_bf16, device, stream)
+    lib.sde_photometric_map_bwd.argtypes = [p, p, p, p, p, i, i, i, i, f, f, f, i, i, p]
     lib.sde_photometric_map_bwd.restype = i
-    # int sde_warp_bilinear_bwd_image(ct, x, y, d_img, B, C, Hi, Wi, Ho, Wo, is_bf16, stream)
-    lib.sde_warp_bilinear_bwd_image.argtypes = [p, p, p, p, i, i, i, i, i, i, i, p]
+    # int sde_warp_bilinear_bwd_image(ct, x, y, d_img, B, C, Hi, Wi, Ho, Wo, is_bf16, device, stream)
+    lib.sde_warp_bilinear_bwd_image.argtypes = [p, p, p, p, i, i, i, i, i, i, i, i, p]
     lib.sde_warp_bilinear_bwd_image.restype = i
     lib.sde_error_string.argtypes = [i]
     lib.sde_error_string.restype = ctypes.c_char_p
 
 
 def load(verbose: bool = False) -> ctypes.CDLL:
-    """The kernels' library, built first if this checkout has not built it yet."""
+    """The kernels' library, built first if this checkout has not built it yet.
+    Once loaded it is returned without taking the lock."""
     global _lib, build_seconds
+    lib = _lib
+    if lib is not None:
+        return lib
     with _lock:
         if _lib is not None:
             return _lib
@@ -138,16 +145,10 @@ def load(verbose: bool = False) -> ctypes.CDLL:
         return lib
 
 
-def on_device(device):
-    """Context in which ``device`` is the current CUDA device; free of cost in
-    the usual case that it already is."""
-    import contextlib
-
-    import torch
-
-    if device.index is None or device.index == torch.cuda.current_device():
-        return contextlib.nullcontext()
-    return torch.cuda.device(device)
+def stream_handle(device_index: int) -> int:
+    """The raw handle of PyTorch's current stream on CUDA device
+    ``device_index``, as an int (without building a ``torch.cuda.Stream``)."""
+    return torch._C._cuda_getCurrentRawStream(device_index)
 
 
 def check(lib: ctypes.CDLL, code: int, what: str) -> None:

@@ -100,37 +100,40 @@ def photometric_vjp_plain(
 
 
 def _check(a: torch.Tensor, b: torch.Tensor) -> None:
-    """What both directions take; anything else raises."""
+    """What both directions take; anything else raises. For CUDA tensors one
+    pass over cheap attributes (no ``torch.device`` objects)."""
     if a.dim() != 4 or a.shape != b.shape:
         raise ValueError(f"a, b must be [B,C,H,W] of one shape, got {tuple(a.shape)} and {tuple(b.shape)}")
     if a.shape[2] < 2 or a.shape[3] < 2:
         raise ValueError(f"reflect padding needs H, W >= 2, got {tuple(a.shape[2:])}")
-    if a.device != b.device:
-        raise ValueError("a and b must lie on one device")
-    if a.device.type == "cuda":
-        if a.dtype != b.dtype or a.dtype not in (torch.float32, torch.bfloat16):
+    if a.is_cuda:
+        if not b.is_cuda or a.get_device() != b.get_device():
+            raise ValueError("a and b must lie on one device")
+        if a.dtype is not b.dtype or (a.dtype is not torch.float32 and a.dtype is not torch.bfloat16):
             raise TypeError(f"a, b must both be float32 or bfloat16, got {a.dtype} and {b.dtype}")
         if not (a.is_contiguous() and b.is_contiguous()):
             raise ValueError("a and b must be contiguous")
-        if a.shape[0] > 65535 or (a.shape[2] + 15) // 16 > 65535:
-            raise ValueError(f"shape {tuple(a.shape)} exceeds the kernels' grid limits")
+        if a.shape[0] * max(a.shape[1], 1) > 65535 or (a.shape[2] + 15) // 16 > 65535 or a.shape[2] * a.shape[3] >= 2**31:
+            raise ValueError(f"shape {tuple(a.shape)} exceeds the kernels' grid or index limits")
+    elif a.device != b.device:
+        raise ValueError("a and b must lie on one device")
     elif a.device.type != "cpu":
         raise ValueError(f"the photometric map supports cpu and cuda tensors, got {a.device}")
 
 
 def _launch_fwd(a: torch.Tensor, b: torch.Tensor, alpha: float, C1: float, C2: float) -> torch.Tensor:
     B, C, H, W = a.shape
-    out = torch.empty((B, 1, H, W), dtype=torch.float32, device=a.device)
+    out = a.new_empty((B, 1, H, W), dtype=torch.float32)
     if B == 0 or C == 0:
         return out.zero_()
     lib = cuda_lib.load()
-    with cuda_lib.on_device(a.device):
-        code = lib.sde_photometric_map_fwd(
-            a.data_ptr(), b.data_ptr(), out.data_ptr(), B, C, H, W,
-            float(alpha), float(C1), float(C2), int(a.dtype == torch.bfloat16),
-            torch.cuda.current_stream().cuda_stream,
-        )
-    cuda_lib.check(lib, code, "photometric_map_fwd launch")
+    device = a.get_device()
+    code = lib.sde_photometric_map_fwd(
+        a.data_ptr(), b.data_ptr(), out.data_ptr(), B, C, H, W,
+        float(alpha), float(C1), float(C2), a.dtype is torch.bfloat16, device, cuda_lib.stream_handle(device),
+    )
+    if code:
+        cuda_lib.check(lib, code, "photometric_map_fwd launch")
     photometric_map.launches += 1
     return out
 
@@ -156,18 +159,19 @@ def photometric_vjp(
         g_a, g_b = photometric_vjp_plain(a, b, g, alpha, C1, C2)
         return (g_a if need_a else None, g_b if need_b else None)
     g = g.float().contiguous()  # autograd may hand over a strided or expanded (stride-0) view
-    g_a = torch.empty(a.shape, dtype=torch.float32, device=a.device) if need_a else None
-    g_b = torch.empty(b.shape, dtype=torch.float32, device=a.device) if need_b else None
+    g_a = a.new_empty(a.shape, dtype=torch.float32) if need_a else None
+    g_b = a.new_empty(b.shape, dtype=torch.float32) if need_b else None
     if a.numel() > 0:
         lib = cuda_lib.load()
-        with cuda_lib.on_device(a.device):
-            code = lib.sde_photometric_map_bwd(
-                a.data_ptr(), b.data_ptr(), g.data_ptr(),
-                g_a.data_ptr() if need_a else None, g_b.data_ptr() if need_b else None,
-                B, C, H, W, float(alpha), float(C1), float(C2), int(a.dtype == torch.bfloat16),
-                torch.cuda.current_stream().cuda_stream,
-            )
-        cuda_lib.check(lib, code, "photometric_map_bwd launch")
+        device = a.get_device()
+        code = lib.sde_photometric_map_bwd(
+            a.data_ptr(), b.data_ptr(), g.data_ptr(),
+            g_a.data_ptr() if need_a else None, g_b.data_ptr() if need_b else None,
+            B, C, H, W, float(alpha), float(C1), float(C2), a.dtype is torch.bfloat16, device,
+            cuda_lib.stream_handle(device),
+        )
+        if code:
+            cuda_lib.check(lib, code, "photometric_map_bwd launch")
         photometric_map.bwd_launches += 1
     return (g_a.to(a.dtype) if need_a else None, g_b.to(b.dtype) if need_b else None)
 
@@ -181,9 +185,9 @@ class _PhotometricMap(torch.autograd.Function):
     def forward(ctx, a, b, alpha, C1, C2):
         ctx.save_for_backward(a, b)
         ctx.constants = (alpha, C1, C2)
-        if a.device.type == "cpu":
-            return photometric_map_plain(a, b, alpha, C1, C2)
-        return _launch_fwd(a, b, alpha, C1, C2)
+        if a.is_cuda:
+            return _launch_fwd(a, b, alpha, C1, C2)
+        return photometric_map_plain(a, b, alpha, C1, C2)
 
     @staticmethod
     @once_differentiable
@@ -205,6 +209,8 @@ def photometric_map(
     none costs nothing.
     """
     _check(a, b)
+    if a.is_cuda and not (torch.is_grad_enabled() and (a.requires_grad or b.requires_grad)):
+        return _launch_fwd(a, b, alpha, C1, C2)  # no graph to record: no autograd Function
     return _PhotometricMap.apply(a, b, alpha, C1, C2)
 
 

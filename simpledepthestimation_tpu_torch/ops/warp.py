@@ -135,32 +135,41 @@ def _check(image: torch.Tensor, x: torch.Tensor, y: torch.Tensor) -> None:
         raise ValueError("image, x and y must lie on one device")
 
 
-def _check_cuda(image: torch.Tensor, x: torch.Tensor, y: torch.Tensor) -> None:
-    """What the kernels take; anything else raises."""
-    if image.dtype not in (torch.float32, torch.bfloat16):
+def _check_cuda(image: torch.Tensor, x: torch.Tensor, y: torch.Tensor) -> int:
+    """What the kernels take, for a CUDA ``image``, in one pass over cheap
+    attributes (no ``torch.device`` objects: this runs once per launch and is
+    most of the host's cost of a small one); anything else raises. Returns the
+    image's CUDA device index."""
+    s, xs = image.shape, x.shape
+    if len(s) != 4 or len(xs) != 3 or xs != y.shape or xs[0] != s[0]:
+        _check(image, x, y)  # raises with the message that says which
+    device = image.get_device()
+    if x.get_device() != device or y.get_device() != device:
+        raise ValueError("image, x and y must lie on one device")
+    if image.dtype is not torch.float32 and image.dtype is not torch.bfloat16:
         raise TypeError(f"image must be float32 or bfloat16, got {image.dtype}")
-    if x.dtype != torch.float32 or y.dtype != torch.float32:
+    if x.dtype is not torch.float32 or y.dtype is not torch.float32:
         raise TypeError(f"x, y must be float32, got {x.dtype} and {y.dtype}")
     if not (image.is_contiguous() and x.is_contiguous() and y.is_contiguous()):
         raise ValueError("image, x and y must be contiguous")
-    if image.shape[0] > 65535:
-        raise ValueError(f"batch {image.shape[0]} exceeds the kernel's grid limit of 65535")
+    if s[0] > 65535 or s[2] * s[3] >= 2**31:
+        raise ValueError(f"image {tuple(s)} exceeds the kernels' grid limit (batch 65535) or plane size (2^31)")
+    return device
 
 
-def _launch_fwd(image: torch.Tensor, x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+def _launch_fwd(image: torch.Tensor, x: torch.Tensor, y: torch.Tensor, device: int) -> torch.Tensor:
     B, C, H, W = image.shape
-    h, w = x.shape[1:]
-    out = torch.empty((B, C, h, w), dtype=image.dtype, device=image.device)
-    if out.numel() == 0:
+    _, h, w = x.shape
+    out = image.new_empty((B, C, h, w))
+    if B * C * h * w == 0:
         return out
     lib = cuda_lib.load()
-    with cuda_lib.on_device(image.device):
-        code = lib.sde_warp_bilinear_fwd(
-            image.data_ptr(), x.data_ptr(), y.data_ptr(), out.data_ptr(),
-            B, C, H, W, h, w, int(image.dtype == torch.bfloat16),
-            torch.cuda.current_stream().cuda_stream,
-        )
-    cuda_lib.check(lib, code, "warp_bilinear_fwd launch")
+    code = lib.sde_warp_bilinear_fwd(
+        image.data_ptr(), x.data_ptr(), y.data_ptr(), out.data_ptr(),
+        B, C, H, W, h, w, image.dtype is torch.bfloat16, device, cuda_lib.stream_handle(device),
+    )
+    if code:
+        cuda_lib.check(lib, code, "warp_bilinear_fwd launch")
     warp_bilinear.launches += 1
     return out
 
@@ -195,13 +204,13 @@ def warp_coord_grad(
     if C == 0:
         return dx.zero_(), dy.zero_()
     lib = cuda_lib.load()
-    with cuda_lib.on_device(image.device):
-        code = lib.sde_warp_bilinear_bwd_coords(
-            image.data_ptr(), x.data_ptr(), y.data_ptr(), ct.data_ptr(), dx.data_ptr(), dy.data_ptr(),
-            B, C, H, W, h, w, int(image.dtype == torch.bfloat16),
-            torch.cuda.current_stream().cuda_stream,
-        )
-    cuda_lib.check(lib, code, "warp_bilinear_bwd_coords launch")
+    device = image.get_device()
+    code = lib.sde_warp_bilinear_bwd_coords(
+        image.data_ptr(), x.data_ptr(), y.data_ptr(), ct.data_ptr(), dx.data_ptr(), dy.data_ptr(),
+        B, C, H, W, h, w, image.dtype is torch.bfloat16, device, cuda_lib.stream_handle(device),
+    )
+    if code:
+        cuda_lib.check(lib, code, "warp_bilinear_bwd_coords launch")
     warp_bilinear.bwd_launches += 1
     return dx, dy
 
@@ -234,13 +243,13 @@ def warp_image_grad(x: torch.Tensor, y: torch.Tensor, ct: torch.Tensor, H: int, 
     if d_image.numel() == 0 or ct.numel() == 0:
         return d_image
     lib = cuda_lib.load()
-    with cuda_lib.on_device(ct.device):
-        code = lib.sde_warp_bilinear_bwd_image(
-            ct.data_ptr(), x.data_ptr(), y.data_ptr(), d_image.data_ptr(),
-            B, C, H, W, h, w, int(ct.dtype == torch.bfloat16),
-            torch.cuda.current_stream().cuda_stream,
-        )
-    cuda_lib.check(lib, code, "warp_bilinear_bwd_image launch")
+    device = ct.get_device()
+    code = lib.sde_warp_bilinear_bwd_image(
+        ct.data_ptr(), x.data_ptr(), y.data_ptr(), d_image.data_ptr(),
+        B, C, H, W, h, w, ct.dtype is torch.bfloat16, device, cuda_lib.stream_handle(device),
+    )
+    if code:
+        cuda_lib.check(lib, code, "warp_bilinear_bwd_image launch")
     warp_bilinear.bwd_image_launches += 1
     return d_image
 
@@ -255,9 +264,9 @@ class _WarpBilinear(torch.autograd.Function):
     @staticmethod
     def forward(ctx, image, x, y):
         ctx.save_for_backward(image, x, y)
-        if image.device.type == "cpu":
-            return warp_bilinear_plain(image, x, y)
-        return _launch_fwd(image, x, y)
+        if image.is_cuda:
+            return _launch_fwd(image, x, y, image.get_device())
+        return warp_bilinear_plain(image, x, y)
 
     @staticmethod
     @once_differentiable
@@ -284,10 +293,14 @@ def warp_bilinear(image: torch.Tensor, x: torch.Tensor, y: torch.Tensor) -> torc
     backward kernels on CUDA); each gradient is computed only where its input
     requires one, so a detached image costs no scatter.
     """
+    if image.is_cuda:
+        device = _check_cuda(image, x, y)
+        # no graph to record: launch the kernel without the autograd Function's cost
+        if not (torch.is_grad_enabled() and (image.requires_grad or x.requires_grad or y.requires_grad)):
+            return _launch_fwd(image, x, y, device)
+        return _WarpBilinear.apply(image, x, y)
     _check(image, x, y)
-    if image.device.type == "cuda":
-        _check_cuda(image, x, y)
-    elif image.device.type != "cpu":
+    if image.device.type != "cpu":
         raise ValueError(f"warp_bilinear supports cpu and cuda tensors, got {image.device}")
     return _WarpBilinear.apply(image, x, y)
 

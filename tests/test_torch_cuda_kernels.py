@@ -40,7 +40,11 @@ def _rand(rng, *shape):
     return torch.from_numpy(rng.rand(*shape).astype(np.float32))
 
 
-@pytest.mark.parametrize("shape", [(2, 3, 37, 83), (1, 1, 8, 8), (3, 5, 64, 640)])
+# the forward takes 4 pixels a thread with 16-byte accesses where the plane's size is a
+# multiple of 4, one by one otherwise: odd planes (37x83), rows not a multiple of 4 (21x46),
+# aligned planes (16x64, 64x640), and every channel count from 1 to 5
+@pytest.mark.parametrize("shape", [(2, 3, 37, 83), (1, 1, 8, 8), (3, 5, 64, 640), (3, 1, 37, 83), (3, 2, 21, 46),
+                                   (2, 4, 16, 64), (3, 5, 21, 46), (2, 4, 37, 83)])
 @pytest.mark.parametrize("spread", [1.0, 3.0], ids=["inside", "one-plane-outside"])
 def test_warp_kernel_matches_plain(shape, spread, card, rng):
     B, C, H, W = shape
@@ -94,28 +98,31 @@ def test_warp_backward_kernel_matches_plain(shape, out_hw, dtype, card, rng):
     assert (xg.grad - want).abs().max().item() <= 1e-5 * max(want.abs().max().item(), 1e-30)
 
 
-@pytest.mark.parametrize("shape", [(2, 3, 37, 83), (1, 2, 2, 2), (1, 1, 2, 5), (2, 3, 3, 3), (2, 3, 192, 640)])
-@pytest.mark.parametrize("both", [False, True], ids=["g_a", "g_a-g_b"])
+@pytest.mark.parametrize("shape", [(2, 3, 37, 83), (1, 2, 2, 2), (1, 1, 2, 5), (2, 3, 3, 3), (2, 3, 192, 640),
+                                   (1, 3, 3, 2), (1, 1, 2, 3), (2, 3, 33, 63)])
+@pytest.mark.parametrize("both", [(True, False), (True, True), (False, True)], ids=["g_a", "g_a-g_b", "g_b"])
 def test_photometric_backward_kernel_matches_plain(shape, both, card, rng):
+    need_a, need_b = both
     a = _rand(rng, *shape).to(card)
     b = (0.8 * a + 0.2 * _rand(rng, *shape).to(card))
     g = _rand(rng, shape[0], 1, *shape[2:]).to(card)
     before = photometric_map.bwd_launches
-    got = photometric_vjp(a, b, g, 0.85, 1e-4, 9e-4, need_a=True, need_b=both)
+    got = photometric_vjp(a, b, g, 0.85, 1e-4, 9e-4, need_a=need_a, need_b=need_b)
     torch.cuda.synchronize()
     assert photometric_map.bwd_launches == before + 1
-    assert (got[1] is not None) == both
+    assert (got[0] is not None) == need_a and (got[1] is not None) == need_b
     want = photometric_vjp_plain(a, b, g, 0.85, 1e-4, 9e-4)
     for k, r in zip(got, want):
         if k is not None:
             assert (k - r).abs().max().item() <= 1e-4 * r.abs().max().item()
-    # through the autograd Function: b needs no gradient and gets none
-    ag = a.clone().requires_grad_()
-    photometric_map(ag, b, 0.85, 1e-4, 9e-4).backward(g)
-    assert torch.equal(ag.grad, got[0])
+    # through the autograd Function: an input that needs no gradient gets none
+    ag, bg = a.clone().requires_grad_(need_a), b.clone().requires_grad_(need_b)
+    photometric_map(ag, bg, 0.85, 1e-4, 9e-4).backward(g)
+    for leaf, k in ((ag, got[0]), (bg, got[1])):
+        assert torch.equal(leaf.grad, k) if k is not None else leaf.grad is None
     # ties: a == b gives exactly zero
-    ga, gb = photometric_vjp(a, a.clone(), g, 0.85, 1e-4, 9e-4)
-    assert torch.count_nonzero(ga) == 0 and torch.count_nonzero(gb) == 0
+    ties = photometric_vjp(a, a.clone(), g, 0.85, 1e-4, 9e-4, need_a=need_a, need_b=need_b)
+    assert all(torch.count_nonzero(t) == 0 for t in ties if t is not None)
 
 
 @pytest.mark.parametrize("shape,out_hw", [((2, 3, 37, 83), (37, 83)), ((2, 3, 44, 300), (52, 300)),
