@@ -123,19 +123,22 @@ def measure(fn, iters: int = 10) -> dict:
       about 0.04 ms this is the host's enqueue cost, not the device's time;
     - ``device_ms``: the device time per call of every kernel the calls launched,
       from torch.profiler's kernel rows over ``iters`` calls (``device_kernels``
-      names them, with their launch counts);
+      names them, with their launch counts and device ms per call);
     - ``enqueue_us``: host wall time per call of ``ENQUEUE_CALLS`` calls with no
       wait inside (the clock stops before the one synchronize at the end)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     ms = cuda_ms(fn, iters)
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    rows = [(e.key, e.count, e.self_device_time_total / 1e3) for e in prof.key_averages()
-            if e.device_type == torch.autograd.DeviceType.CUDA]
+    for _ in range(3):  # now and then a profile records no kernel time at all: take it again
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        rows = [(e.key, e.count, e.self_device_time_total / 1e3) for e in prof.key_averages()
+                if e.device_type == torch.autograd.DeviceType.CUDA]
+        if sum(r[2] for r in rows) > 0:
+            break
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     for _ in range(ENQUEUE_CALLS):
@@ -143,7 +146,7 @@ def measure(fn, iters: int = 10) -> dict:
     enqueue_us = (time.perf_counter() - t0) * 1e6 / ENQUEUE_CALLS
     torch.cuda.synchronize()
     return {"ms": ms, "device_ms": sum(r[2] for r in rows) / iters, "enqueue_us": enqueue_us,
-            "device_kernels": [[k[:60], c] for k, c, _ in rows]}
+            "device_kernels": [[k[:60], c, ms / iters] for k, c, ms in rows]}
 
 
 def measure_into(rec: dict, fn, prefix: str = "") -> None:
@@ -372,6 +375,25 @@ def _check_warp_bwd(image, x, y, ct, tol, label, timed: bool):
     return rec
 
 
+def corner_add_counts(x, y, C, Hi, Wi):
+    """The float adds the image cotangent of a warp at ``x, y`` [B,h,w] into C
+    planes of ``Hi x Wi`` needs (the corners of non-zero weight inside the image,
+    times C), and the most of them on one address of one plane and channel."""
+    import torch
+
+    B = x.shape[0]
+    x0, y0 = torch.floor(x), torch.floor(y)
+    wx, wy = x - x0, y - y0
+    x0, y0 = x0.clamp(-2, Wi).long(), y0.clamp(-2, Hi).long()
+    plane = torch.arange(B, device=x.device)[:, None, None] * (Hi * Wi)
+    counts = torch.zeros(B * Hi * Wi, dtype=torch.int64, device=x.device)
+    for dx, dy, w in ((0, 0, (1 - wx) * (1 - wy)), (1, 0, wx * (1 - wy)), (0, 1, (1 - wx) * wy), (1, 1, wx * wy)):
+        ix, iy = x0 + dx, y0 + dy
+        adds = (ix >= 0) & (ix < Wi) & (iy >= 0) & (iy < Hi) & (w != 0)
+        counts += torch.bincount((plane + iy.clamp(0, Hi - 1) * Wi + ix.clamp(0, Wi - 1))[adds], minlength=B * Hi * Wi)
+    return int(counts.sum()) * C, int(counts.max())
+
+
 def _check_warp_bwd_image(x, y, ct, Hi, Wi, label, timed: bool):
     """K5 through the autograd Function (forward kernel, then the image
     backward kernel, coordinates detached) against the plain version, to
@@ -396,11 +418,13 @@ def _check_warp_bwd_image(x, y, ct, Hi, Wi, label, timed: bool):
     err = (got.float() - ref).abs().max().item()
     bound_ms, bound_by = warp_bwd_image_bound(B, C, h, w, Hi, Wi, ct.element_size())
     on_border = ((x == 0) | (x == Wi - 1) | (y == 0) | (y == Hi - 1)).float().mean().item()
+    corner_adds, most_on_one = corner_add_counts(x, y, C, Hi, Wi)
     rec = {
         "kernel": "warp_bilinear_bwd_image", "case": label, "shape": [B, C, h, w], "image_hw": [Hi, Wi],
         "dtype": str(ct.dtype).replace("torch.", ""), "max_abs_err": err, "ref_max": ref.abs().max().item(),
         "tol": f"{K5_ATOL} + {K5_RTOL}*scatter(|ct|)" + (" + 2^-8*|ref|" if ct.dtype == torch.bfloat16 else ""),
-        "scatter_abs_ct_max": scale.max().item(), "share_on_border": on_border, "bound_ms": bound_ms, "bound_by": bound_by,
+        "scatter_abs_ct_max": scale.max().item(), "share_on_border": on_border, "corner_adds": corner_adds,
+        "most_adds_on_one_address": most_on_one, "bound_ms": bound_ms, "bound_by": bound_by,
     }
     if timed:
         measure_into(rec, lambda: warp_image_grad(x, y, ct, Hi, Wi))
@@ -543,7 +567,7 @@ def phase_kernels(device):
     import numpy as np
     import torch
 
-    from simpledepthestimation_tpu_torch.ops.photometric import photometric_vjp
+    from simpledepthestimation_tpu_torch.ops.photometric import photometric_map, photometric_vjp
 
     def record(rec):
         if rec["dtype"] == "float32":
@@ -659,16 +683,37 @@ def phase_kernels(device):
         rec = check_warp_bwd_image(x, y, ct, mh, mw, "view_synthesis" + tag, timed=True)
         if dtype == torch.float32:
             flagship["warp_bwd_image"] = rec
+        _, xs, ys = synthesis_coords(25, NM, mh, mw, device, smooth_depth=True)
+        check_warp_bwd_image(xs, ys, ct, mh, mw, "view_synthesis_smooth_depth" + tag, timed=True)
+        # a near-identity warp, as the MotionLearning step at its start makes: every pixel
+        # moved by under 1.5 px (a smooth random field), clamped to the image
+        field = torch.from_numpy(smooth_field(rng, NM, mh, mw)[:, :2]).to(device)
+        cols = torch.arange(mw, device=device, dtype=torch.float32).expand(NM, mh, mw)
+        rows = torch.arange(mh, device=device, dtype=torch.float32)[:, None].expand(NM, mh, mw)
+        xn = (cols + 3.0 * (field[:, 0] - 0.5)).clamp(0, mw - 1.0).contiguous()
+        yn = (rows + 3.0 * (field[:, 1] - 0.5)).clamp(0, mh - 1.0).contiguous()
+        check_warp_bwd_image(xn, yn, ct, mh, mw, "near_identity" + tag, timed=True)
+        # no pixel on the border: uniform inside the plane, every corner adds (the most atomics)
+        xi, yi = 1.0 + rand(NM, mh, mw) * (mw - 3.0), 1.0 + rand(NM, mh, mw) * (mh - 3.0)
+        check_warp_bwd_image(xi, yi, ct, mh, mw, "interior" + tag, timed=True)
         xu = (rand(NM, mh, mw) * 3.0 - 1.0) * mw
         yu = (rand(NM, mh, mw) * 3.0 - 1.0) * mh
         check_warp_bwd_image(xu, yu, ct, mh, mw, "uniform_3x_plane" + tag, timed=True)
         # the same, clamped as view synthesis clamps: 8/9 of the pixels on the border
         check_warp_bwd_image(xu.clamp(0, mw - 1.0).contiguous(), yu.clamp(0, mh - 1.0).contiguous(), ct, mh, mw,
                              "border_clamped" + tag, timed=True)
+        # every pixel of a plane at one point: all lanes of every warp on the same four addresses
+        xc = torch.full((NM, mh, mw), mw * 0.37 + 0.25, device=device)
+        yc = torch.full((NM, mh, mw), mh * 0.61 + 0.5, device=device)
+        check_warp_bwd_image(xc, yc, ct, mh, mw, "one_address" + tag, timed=True)
         for (Hi, Wi), (oh, ow), label in (((44, 300), (52, 300), "unaligned_other_image_height"),
                                           ((37, 83), (21, 45), "unaligned_other_output_size")):
             x, y = rand(2, oh, ow) * (Wi + 6) - 3, rand(2, oh, ow) * (Hi + 6) - 3
             check_warp_bwd_image(x, y, (rand(2, 3, oh, ow) - 0.5).to(dtype), Hi, Wi, label + tag, timed=False)
+
+    # K5 on the inputs of its launch in a MotionLearning train step (the main path's own)
+    x, y, ct, Hi, Wi = motion_step_image_grad_inputs(device)
+    check_warp_bwd_image(x, y, ct, Hi, Wi, "motion_step", timed=True)
 
     # K1 and K3 at the MotionLearning step's shapes: the RGB-D warp of frame and depth
     # ([2B,4,H,W], depth in metres) and the cycle loss's warp of the [2B,3,H,W] reverse
@@ -687,6 +732,18 @@ def phase_kernels(device):
     image, x, y = synthesis_coords(5, 4, h, w, device)
     _check_kernel_chain(image, x, y, 0.8 * image + 0.2 * rand(4, 3, h, w), rand(4, 1, h, w))
     host_path_costs(device)
+    # K2 at a tie: a == b gives a map of exactly zero (the ratio's numerator d - n is 0, and
+    # |a - b| is 0), on the small planes' 16-row tiles and the main path's 32-row ones; last,
+    # so that a tree whose kernel fails it has its other cases timed first
+    for dtype, tag in ((torch.float32, ""), (torch.bfloat16, "_bf16")):
+        for shape in ((2, 3, 37, 83), (NB, 3, *PLANES[0])):
+            a = rand(*shape).to(dtype)
+            before = photometric_map.launches
+            nonzero = int(torch.count_nonzero(photometric_map(a, a.clone(), 0.85, 1e-4, 9e-4)))
+            emit({"kernel": "photometric_map_fwd", "case": "tie_a_equals_b" + tag, "shape": list(shape),
+                  "nonzero_map_values": nonzero, "launches": photometric_map.launches - before})
+            if nonzero:
+                raise AssertionError(f"photometric_map_fwd gave {nonzero} non-zero values at a == b")
     for rec in flagship.values():
         rec["max_abs_err"] = worst[rec["kernel"]]
     return flagship
@@ -928,6 +985,35 @@ MOTION_SCHEDULE = {"noise_stddev": 0.5, "motion_weight": 1.0}
 MOTION_LOSSES = {"rgb_l1_loss", "ssim_loss", "rot_loss", "trans_loss", "motion_smooth_loss",
                  "motion_sparsity_loss", "smooth_loss"}
 MOTION_CHECKED_STEPS = 5
+
+
+def motion_step_image_grad_inputs(device):
+    """The inputs of K5's launch in one MotionLearning train step at full width
+    (seeded random weights, B=16 pairs, 128x416, the schedule at its ends):
+    ``x, y, ct`` and the image's ``H, W``, as the cycle loss hands them over."""
+    import torch
+
+    from simpledepthestimation_tpu_torch.ops import warp as warp_ops
+    from simpledepthestimation_tpu_torch.parallel import create_train_state, make_train_step
+
+    cfg = motion_cfg()
+    state = create_train_state(cfg, generator=torch.Generator().manual_seed(0), steps_per_epoch=4)
+    step = make_train_step(state, grad_clip=float(cfg.SOLVER.GRAD_CLIP), schedule_fn=lambda i: MOTION_SCHEDULE)
+    captured = []
+    launch = warp_ops.warp_image_grad
+
+    def capture(x, y, ct, H, W):
+        captured.append((x.clone(), y.clone(), ct.contiguous().clone(), H, W))
+        return launch(x, y, ct, H, W)
+
+    warp_ops.warp_image_grad = capture  # the warp's backward looks it up when it runs
+    try:
+        step(make_motion_batch(400, SMOKE_B, *MOTION_HW, device))
+    finally:
+        warp_ops.warp_image_grad = launch
+    if len(captured) != 1:
+        raise AssertionError(f"a MotionLearning step launched K5 {len(captured)} times, expected 1")
+    return captured[0]
 
 
 def phase_motion_train_path(device):

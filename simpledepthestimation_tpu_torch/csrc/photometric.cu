@@ -14,17 +14,45 @@
 // tile with a halo is the natural form at every size, so one kernel covers both.
 //
 // Bound on this card: bytes. The function must read a and b once and write one
-// float per pixel: B*H*W*(2*s*C + 4) bytes for an s-byte input type, against
-// ~70 flops per pixel and channel. The unfused composition writes and re-reads
-// about a dozen full-size intermediates; this kernel keeps them in shared
-// memory and registers.
-// Design: one block per 16x64 output tile of one batch item. Per channel the
-// block stages the 18x66 tile-plus-halo of a and of b in shared memory, with
-// the reflection folded into the staging index, then each of its 256 threads
-// forms the five window sums for four pixels of one column from shared memory
-// and adds the channel's term to a register accumulator; the channel mean is
-// written straight to the [B,1,H,W] output. Arithmetic is float32 for both
-// input types. The halo costs 1188/1024 = 1.16x the tile's reads, served by L2.
+// float per pixel: B*H*W*(2*s*C + 4) bytes for an s-byte input type (0.0329 ms
+// at [32,3,192,640] float32 at 3.35 TB/s); its ~70 flops per pixel and channel
+// are far below the float32 rate's balance. The unfused composition writes and
+// re-reads about a dozen full-size intermediates; this kernel keeps them in
+// shared memory and registers.
+// Design:
+// - One block of 256 threads per 32x64 output tile of one batch item (16x64,
+//   ROWS = 4, where the grid of 32-row tiles would not fill the card once at 4
+//   blocks per SM: twice the blocks for the small planes). Each thread owns one
+//   column and walks ROWS consecutive rows of it; the three staged rows of a
+//   window are held in registers as the walk goes down (6 shared loads per
+//   pixel and channel; the loop unrolled, so the ring needs no copies).
+// - The window sums are taken in the plain version's order (avg_pool2d's:
+//   row-major, one term at a time, each product rounded first) and divided by 9
+//   correctly rounded, so they are the plain version's to the bit: separable row
+//   and column sums (4 adds a sum, not 8) measured 0.0544 ms but moved the map
+//   by up to 1.3e-5 against the plain version at C = 2 (the variances cancel,
+//   E[a^2] - mu^2 with both near 0.3, and are divided by d2 down to C2), past
+//   the 1e-5 it is held to; not shipped.
+// - The tile plus its one-pixel halo (34x66) is staged per channel. The
+//   reflection is computed once per row and once per column of the tile (two
+//   small tables), and each thread's staging offsets once per block, for all
+//   channels and both inputs. float32 is copied with cp.async, double-buffered
+//   over the channel loop: channel c+1's tile is in flight while channel c is
+//   summed. bfloat16 (cp.async moves 4 bytes at least) is loaded into registers
+//   before channel c is summed and stored, as float32, after it. The halo costs
+//   2244/2048 = 1.10x the tile's reads, served by L2.
+// - One approximate reciprocal of d (d >= C1*C2 > 0), the ratio taken as
+//   (d - n)*(1/d)*0.5, and n1, n2, d1, d2 rounded one operation at a time as the
+//   plain version rounds them: a == b gives n == d and a map of exactly 0, as the
+//   plain version does, whatever nvcc contracts. (A kernel that left n and d to
+//   contraction gave non-zero values at a == b at more than half the pixels.)
+// - Arithmetic is float32 for both input types; the channel mean is written
+//   straight to the [B,1,H,W] output.
+// Resources (ptxas -v, sm_90a): 64 registers, 36,304 B of shared memory at
+// ROWS = 8 (61 and 19,344 B at ROWS = 4), no spills in float32 (80 B at
+// bfloat16, ROWS = 8): 4 blocks (32 warps) per SM. The SASS holds ~150
+// instructions per pixel and channel, 40 of them the window's sequential adds,
+// so the instruction count, not the bytes, sets the time (PERF.md).
 
 #include "common.cuh"
 
@@ -32,11 +60,8 @@ namespace {
 
 using sde::ld;
 
-constexpr int kTileW = 64;
-constexpr int kTileH = 16;
 constexpr int kThreads = 256;
-constexpr int kRowsPerThread = kTileH * kTileW / kThreads;  // 4
-constexpr int kRowStep = kThreads / kTileW;                 // 4
+constexpr float kNinth = 1.0f / 9.0f;
 
 // reflect one pixel past either border; the clamp only serves tile positions
 // that lie past the image's edge and are never written
@@ -46,73 +71,219 @@ __device__ __forceinline__ int reflect(int i, int n) {
   return min(max(i, 0), n - 1);
 }
 
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
+__device__ __forceinline__ void cp_async4(float* dst, const float* src) {
+  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(d), "l"(src));
+}
+
+// One staged element: asynchronously for float32 (wait before the barrier that
+// follows) and with a plain load for bfloat16 (cp.async moves 4 bytes at least).
+__device__ __forceinline__ void copy4(float* dst, const float* src) { cp_async4(dst, src); }
+__device__ __forceinline__ void copy4(float* dst, const __nv_bfloat16* src) { *dst = ld(src); }
+
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
+__device__ __forceinline__ void cp_async_wait_all() { asm volatile("cp.async.wait_all;\n" ::: "memory"); }
+// all but the most recently committed group have landed
+__device__ __forceinline__ void cp_async_wait_prior() { asm volatile("cp.async.wait_group 1;\n" ::: "memory"); }
+
+// One staged row at a centre column: the three values of a and of b.
+struct Row3 {
+  float a0, a1, a2, b0, b1, b2;
+};
+
+__device__ __forceinline__ Row3 load_row(const float* sa, const float* sb, int at) {
+  return {sa[at], sa[at + 1], sa[at + 2], sb[at], sb[at + 1], sb[at + 2]};
+}
+
+// The five window sums of a, b, a*a, b*b, a*b, taken in the plain version's
+// order (avg_pool2d's: row-major, one term at a time, each product rounded
+// before it is added), so that they are the plain version's to the bit: the
+// variances cancel (E[a^2] - mu^2 with both near 0.3) and are then divided by
+// d2, which comes down to C2, so a sum in another order (separable row and
+// column sums) moved the map by up to 1.3e-5, past the 1e-5 it is held to.
+struct Sums {
+  float a, b, aa, bb, ab;
+};
+
+__device__ __forceinline__ float add3(float s, float x0, float x1, float x2) {
+  return __fadd_rn(__fadd_rn(__fadd_rn(s, x0), x1), x2);
+}
+
+__device__ __forceinline__ Sums first_row(const Row3& r) {
+  return {__fadd_rn(__fadd_rn(r.a0, r.a1), r.a2), __fadd_rn(__fadd_rn(r.b0, r.b1), r.b2),
+          __fadd_rn(__fadd_rn(__fmul_rn(r.a0, r.a0), __fmul_rn(r.a1, r.a1)), __fmul_rn(r.a2, r.a2)),
+          __fadd_rn(__fadd_rn(__fmul_rn(r.b0, r.b0), __fmul_rn(r.b1, r.b1)), __fmul_rn(r.b2, r.b2)),
+          __fadd_rn(__fadd_rn(__fmul_rn(r.a0, r.b0), __fmul_rn(r.a1, r.b1)), __fmul_rn(r.a2, r.b2))};
+}
+
+__device__ __forceinline__ void add_row(Sums& s, const Row3& r) {
+  s.a = add3(s.a, r.a0, r.a1, r.a2);
+  s.b = add3(s.b, r.b0, r.b1, r.b2);
+  s.aa = add3(s.aa, __fmul_rn(r.a0, r.a0), __fmul_rn(r.a1, r.a1), __fmul_rn(r.a2, r.a2));
+  s.bb = add3(s.bb, __fmul_rn(r.b0, r.b0), __fmul_rn(r.b1, r.b1), __fmul_rn(r.b2, r.b2));
+  s.ab = add3(s.ab, __fmul_rn(r.a0, r.b0), __fmul_rn(r.a1, r.b1), __fmul_rn(r.a2, r.b2));
+}
+
+// s / 9 correctly rounded, as avg_pool2d divides: the product with the rounded
+// reciprocal, corrected once by its exact remainder
+__device__ __forceinline__ float div9(float s) {
+  const float q = __fmul_rn(s, kNinth);
+  return __fmaf_rn(__fmaf_rn(-9.0f, q, s), kNinth, q);
+}
+
+// The clip's argument (1 - n/d)/2 of one window, each term rounded one operation
+// at a time as the plain version rounds it (a == b gives n == d), with one
+// approximate reciprocal of d (d >= C1*C2 > 0): taken as (d - n)*(1/d)/2, it is
+// exactly 0 at a tie whatever the reciprocal's rounding.
+__device__ __forceinline__ float ssim_ratio(const Sums& s, float C1, float C2) {
+  const float mu_a = div9(s.a), mu_b = div9(s.b);
+  const float mu_aa = __fmul_rn(mu_a, mu_a), mu_bb = __fmul_rn(mu_b, mu_b), mu_ab = __fmul_rn(mu_a, mu_b);
+  const float sig_a = __fsub_rn(div9(s.aa), mu_aa);
+  const float sig_b = __fsub_rn(div9(s.bb), mu_bb);
+  const float sig_ab = __fsub_rn(div9(s.ab), mu_ab);
+  const float n1 = __fadd_rn(2.0f * mu_ab, C1), n2 = __fadd_rn(2.0f * sig_ab, C2);
+  const float d1 = __fadd_rn(__fadd_rn(mu_aa, mu_bb), C1), d2 = __fadd_rn(__fadd_rn(sig_a, sig_b), C2);
+  const float n = __fmul_rn(n1, n2), d = __fmul_rn(d1, d2);
+  float rd;
+  asm("rcp.approx.ftz.f32 %0, %1;" : "=f"(rd) : "f"(d));
+  return __fsub_rn(d, n) * rd * 0.5f;
+}
+
+// K2's tile: kFwdCols columns (one per thread of a strip), kFwdStrips strips of
+// ROWS rows, staged with a one-pixel halo
+constexpr int kFwdCols = 64;
+constexpr int kFwdStrips = kThreads / kFwdCols;  // 4
+constexpr int kFwdStageW = kFwdCols + 2;         // 66
+
+template <typename T, int ROWS>
+__global__ void __launch_bounds__(kThreads, 4)
 photometric_map_fwd_kernel(const T* __restrict__ a, const T* __restrict__ b,
                            float* __restrict__ out, int C, int H, int W,
                            float alpha, float C1, float C2) {
-  __shared__ float sa[kTileH + 2][kTileW + 2];
-  __shared__ float sb[kTileH + 2][kTileW + 2];
+  constexpr int kTileH = kFwdStrips * ROWS;
+  constexpr int kStageH = kTileH + 2;
+  constexpr int kStageN = kFwdStageW * kStageH;
+  constexpr int kPer = (kStageN + kThreads - 1) / kThreads;  // staged elements per thread
+  __shared__ __align__(16) float sa[2][kStageN];
+  __shared__ __align__(16) float sb[2][kStageN];
+  __shared__ int row_off[kStageH];
+  __shared__ int col_off[kFwdStageW];
 
   const int bi = blockIdx.z;
-  const int ty0 = blockIdx.y * kTileH, tx0 = blockIdx.x * kTileW;
+  const int ty0 = blockIdx.y * kTileH, tx0 = blockIdx.x * kFwdCols;
   const int tid = threadIdx.x;
-  const int lx = tid % kTileW, ly0 = tid / kTileW;
+  const int col = tid % kFwdCols, strip = tid / kFwdCols;
   const long long plane = (long long)H * W;
 
-  float acc[kRowsPerThread];
+  // the reflection, once per staged row and column
+  if (tid < kStageH) row_off[tid] = reflect(ty0 - 1 + tid, H) * W;
+  else if (tid - kStageH < kFwdStageW) col_off[tid - kStageH] = reflect(tx0 - 1 + tid - kStageH, W);
+  __syncthreads();
+  // this thread's staged elements k = tid + i*256 of the row-major 34x66 (or 18x66) tile:
+  // their plane offsets, once for every channel and both inputs
+  int off[kPer];
 #pragma unroll
-  for (int j = 0; j < kRowsPerThread; ++j) acc[j] = 0.0f;
-
-  for (int c = 0; c < C; ++c) {
+  for (int i = 0; i < kPer; ++i) {
+    const int k = tid + i * kThreads;
+    off[i] = k < kStageN ? row_off[k / kFwdStageW] + col_off[k % kFwdStageW] : 0;
+  }
+  constexpr bool kAsync = sizeof(T) == 4;  // float32: cp.async; bfloat16: loads held in registers
+  // float32: channel c's tile into buffer buf with cp.async, one commit group
+  auto stage_async = [&](int c, int buf) {
     const T* pa = a + ((long long)bi * C + c) * plane;
     const T* pb = b + ((long long)bi * C + c) * plane;
-    for (int k = tid; k < (kTileH + 2) * (kTileW + 2); k += kThreads) {
-      const int r = k / (kTileW + 2), q = k % (kTileW + 2);
-      const int gy = reflect(ty0 + r - 1, H), gx = reflect(tx0 + q - 1, W);
-      const long long off = (long long)gy * W + gx;
-      sa[r][q] = ld(pa + off);
-      sb[r][q] = ld(pb + off);
-    }
-    __syncthreads();
 #pragma unroll
-    for (int j = 0; j < kRowsPerThread; ++j) {
-      const int ly = ly0 + j * kRowStep;
-      float s_a = 0.f, s_b = 0.f, s_aa = 0.f, s_bb = 0.f, s_ab = 0.f;
-#pragma unroll
-      for (int dy = 0; dy < 3; ++dy) {
-#pragma unroll
-        for (int dx = 0; dx < 3; ++dx) {
-          const float va = sa[ly + dy][lx + dx], vb = sb[ly + dy][lx + dx];
-          s_a += va;
-          s_b += vb;
-          s_aa += va * va;
-          s_bb += vb * vb;
-          s_ab += va * vb;
-        }
+    for (int i = 0; i < kPer; ++i) {
+      if (tid + i * kThreads < kStageN) {
+        copy4(&sa[buf][tid + i * kThreads], pa + off[i]);
+        copy4(&sb[buf][tid + i * kThreads], pb + off[i]);
       }
-      const float mu_a = s_a / 9.0f, mu_b = s_b / 9.0f;
-      const float sig_a = s_aa / 9.0f - mu_a * mu_a;
-      const float sig_b = s_bb / 9.0f - mu_b * mu_b;
-      const float sig_ab = s_ab / 9.0f - mu_a * mu_b;
-      const float n = (2.0f * mu_a * mu_b + C1) * (2.0f * sig_ab + C2);
-      const float d = (mu_a * mu_a + mu_b * mu_b + C1) * (sig_a + sig_b + C2);
-      const float ssim_dist = fminf(fmaxf((1.0f - n / d) * 0.5f, 0.0f), 1.0f);
-      const float l1 = fabsf(sa[ly + 1][lx + 1] - sb[ly + 1][lx + 1]);
-      acc[j] += alpha * ssim_dist + (1.0f - alpha) * l1;
+    }
+    cp_async_commit();
+  };
+  // bfloat16: channel c's values into registers (in flight while the previous channel
+  // is summed), then, after that, into buffer buf as float32
+  unsigned short held_a[kAsync ? 1 : kPer], held_b[kAsync ? 1 : kPer];
+  auto fetch = [&](int c) {
+    const unsigned short* pa = reinterpret_cast<const unsigned short*>(a) + ((long long)bi * C + c) * plane;
+    const unsigned short* pb = reinterpret_cast<const unsigned short*>(b) + ((long long)bi * C + c) * plane;
+#pragma unroll
+    for (int i = 0; i < (kAsync ? 0 : kPer); ++i) {
+      held_a[i] = __ldg(pa + off[i]);
+      held_b[i] = __ldg(pb + off[i]);
+    }
+  };
+  auto put = [&](int buf) {
+#pragma unroll
+    for (int i = 0; i < (kAsync ? 0 : kPer); ++i) {
+      if (tid + i * kThreads < kStageN) {
+        sa[buf][tid + i * kThreads] = __bfloat162float(__ushort_as_bfloat16(held_a[i]));
+        sb[buf][tid + i * kThreads] = __bfloat162float(__ushort_as_bfloat16(held_b[i]));
+      }
+    }
+  };
+
+  float acc[ROWS];
+#pragma unroll
+  for (int j = 0; j < ROWS; ++j) acc[j] = 0.0f;
+  const float k_l1 = 1.0f - alpha;
+
+  if (kAsync) {
+    stage_async(0, 0);
+  } else {
+    fetch(0);
+    put(0);
+  }
+  for (int c = 0; c < C; ++c) {
+    const int buf = c & 1;
+    const bool more = c + 1 < C;
+    if (kAsync) {
+      if (more) {
+        stage_async(c + 1, buf ^ 1);  // its buffer was last read before the previous barrier
+        cp_async_wait_prior();        // channel c's copies have landed
+      } else {
+        cp_async_wait_all();
+      }
+    } else if (more) {
+      fetch(c + 1);
     }
     __syncthreads();
+    // this thread's column down its strip: the window of output row j is staged rows j..j+2
+    const float* ra = &sa[buf][strip * ROWS * kFwdStageW + col];
+    const float* rb = &sb[buf][strip * ROWS * kFwdStageW + col];
+    Row3 r0 = load_row(ra, rb, 0);
+    Row3 r1 = load_row(ra, rb, kFwdStageW);
+#pragma unroll
+    for (int j = 0; j < ROWS; ++j) {
+      const Row3 r2 = load_row(ra, rb, (j + 2) * kFwdStageW);
+      Sums s = first_row(r0);
+      add_row(s, r1);
+      add_row(s, r2);
+      acc[j] += alpha * fminf(fmaxf(ssim_ratio(s, C1, C2), 0.0f), 1.0f) + k_l1 * fabsf(r1.a1 - r1.b1);
+      r0 = r1;
+      r1 = r2;
+    }
+    if (!kAsync && more) put(buf ^ 1);  // read last before the previous barrier
+    __syncthreads();  // buffer buf is staged again for channel c + 2
   }
 
-  const int gx = tx0 + lx;
+  const int gx = tx0 + col;
   if (gx < W) {
     const float inv_c = 1.0f / (float)C;
+    float* dst = out + (long long)bi * plane + gx;
 #pragma unroll
-    for (int j = 0; j < kRowsPerThread; ++j) {
-      const int gy = ty0 + ly0 + j * kRowStep;
-      if (gy < H) out[(long long)bi * plane + (long long)gy * W + gx] = acc[j] * inv_c;
+    for (int j = 0; j < ROWS; ++j) {
+      const int gy = ty0 + strip * ROWS + j;
+      if (gy < H) dst[(long long)gy * W] = acc[j] * inv_c;
     }
   }
+}
+
+template <typename T>
+void launch_fwd(bool tall, dim3 grid, cudaStream_t s, const T* a, const T* b, float* out, int C, int H, int W,
+                float alpha, float C1, float C2) {
+  if (tall) photometric_map_fwd_kernel<T, 8><<<grid, kThreads, 0, s>>>(a, b, out, C, H, W, alpha, C1, C2);
+  else photometric_map_fwd_kernel<T, 4><<<grid, kThreads, 0, s>>>(a, b, out, C, H, W, alpha, C1, C2);
 }
 
 }  // namespace
@@ -126,15 +297,16 @@ int sde_photometric_map_fwd(const void* a, const void* b, void* out, int B, int 
                             int W, float alpha, float C1, float C2, int is_bf16,
                             int device, void* stream) {
   sde::DeviceGuard guard(device);
-  dim3 grid((unsigned)((W + kTileW - 1) / kTileW), (unsigned)((H + kTileH - 1) / kTileH),
-            (unsigned)B);
   cudaStream_t s = (cudaStream_t)stream;
+  const unsigned gx = (unsigned)((W + kFwdCols - 1) / kFwdCols);
+  // 32-row tiles where they fill the card once at 4 blocks per SM (132 SMs), else 16-row
+  // tiles: twice the blocks for the small planes
+  const bool tall = (long long)gx * ((H + 31) / 32) * B >= 4 * 132;
+  const dim3 grid(gx, (unsigned)(tall ? (H + 31) / 32 : (H + 15) / 16), (unsigned)B);
   if (is_bf16) {
-    photometric_map_fwd_kernel<__nv_bfloat16><<<grid, kThreads, 0, s>>>(
-        (const __nv_bfloat16*)a, (const __nv_bfloat16*)b, (float*)out, C, H, W, alpha, C1, C2);
+    launch_fwd(tall, grid, s, (const __nv_bfloat16*)a, (const __nv_bfloat16*)b, (float*)out, C, H, W, alpha, C1, C2);
   } else {
-    photometric_map_fwd_kernel<float><<<grid, kThreads, 0, s>>>(
-        (const float*)a, (const float*)b, (float*)out, C, H, W, alpha, C1, C2);
+    launch_fwd(tall, grid, s, (const float*)a, (const float*)b, (float*)out, C, H, W, alpha, C1, C2);
   }
   return (int)cudaGetLastError();
 }
@@ -206,19 +378,6 @@ constexpr int kStrips = kThreads / kBwdCols;              // 4
 constexpr int kField = kBwdRows * kBwdCols;               // 2176
 constexpr int kMaxStripRows = (kBwdRows + kStrips - 1) / kStrips;  // 9: stage A's strips have 8 or 9 rows
 constexpr int kBwdRowsPerStrip = kBwdTileH / kStrips;     // 8: stage B's
-constexpr float kNinth = 1.0f / 9.0f;
-
-__device__ __forceinline__ void cp_async4(float* dst, const float* src) {
-  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(d), "l"(src));
-}
-
-// One channel's a, b tile, asynchronously for float32 (cp_async_wait_all before
-// the barrier that follows) and with plain loads for bfloat16 (cp.async moves 4
-// bytes at least): element k of the row-major 36x66 tile by thread k mod 256,
-// the reflection folded into its offset.
-__device__ __forceinline__ void copy4(float* dst, const float* src) { cp_async4(dst, src); }
-__device__ __forceinline__ void copy4(float* dst, const __nv_bfloat16* src) { *dst = ld(src); }
 
 template <typename T>
 __device__ __forceinline__ void stage_ab(float* sa, float* sb, const T* pa, const T* pb, int H,
@@ -232,10 +391,8 @@ __device__ __forceinline__ void stage_ab(float* sa, float* sb, const T* pa, cons
       copy4(sb + k, pb + off);
     }
   }
-  asm volatile("cp.async.commit_group;\n" ::);
+  cp_async_commit();
 }
-
-__device__ __forceinline__ void cp_async_wait_all() { asm volatile("cp.async.wait_all;\n" ::: "memory"); }
 
 // the five row sums of one staged row at a centre column (the squares and the
 // product with the same rounding steps, so that a == b gives equal sums)

@@ -54,14 +54,44 @@
 // with the corner weights (1-wx)(1-wy), wx(1-wy), (1-wx)wy, wx*wy. Replaces
 // _img_ct_kernel (via warp_image_cotangent) of the same file, which writes the
 // scatter as a product of one-hot row and column matrices because its target
-// has no scatter. Bound: bytes, B*Ho*Wo*(8 + s*C) read + B*Hi*Wi*C*4 written.
-// Design: one thread per output pixel, K1's corners_at (so the three kernels
-// agree on every clamp and mask), and per channel up to four float32
-// atomicAdds into a zero-filled float32 d_img; corners outside the image or of
-// weight exactly 0 are skipped. The atomics make the order of the additions,
-// and so the last bits of d_img, vary from run to run. Where many pixels land
-// on one address (coordinates clamped to the border) the atomics to that
-// address serialise.
+// has no scatter. Bound: bytes, B*Ho*Wo*(8 + s*C) read + B*Hi*Wi*C*4 written
+// (0.0163 ms at [32,3,128,416] float32). What sets the time is the scatter's
+// float32 atomics in L2: corners that lanes scatter cost one L2 request each,
+// and the adds that many pixels put on one address (clamped coordinates: the
+// image's corners and border) serialise there.
+// Design: one thread per output pixel, 256 consecutive pixels of a plane per
+// block, K1's corners_at (so the three kernels agree on every clamp and mask),
+// float32 adds into the zero-filled float32 d_img, corners of weight 0 and
+// channels with ct == 0 skipped. Each warp takes one of three paths:
+// - sparse (at most 16 of its pixels land in the image): each lane adds its own
+//   corners, a row's two in one 16-byte vector add (atomicAdd on float4, sm_90:
+//   one L2 request, not two) where they share a 16-byte segment;
+// - coalesced (its top-left corners on at most 10 cache lines, at most 8 of them
+//   on the previous lane's address: a near-identity or smooth warp): one
+//   instruction per corner of every lane, which L2 takes as a few requests, and
+//   where a lane's right corner is the next lane's left one the next lane adds
+//   both (a shuffle): one add per address and row instead of two;
+// - dense (scattered lanes, or many on one address: clamped coordinates): per row
+//   of corners, the lanes whose corners fall in one 16-byte segment
+//   (__match_any_sync on the segment, any set of lanes) sum their four-float
+//   pieces with shuffles, log2 of the group's size in rounds, and the group's
+//   lowest lane adds them with one vector add: 32 pixels clamped onto one image
+//   corner become one request.
+// The zero fill stays the wrapper's torch.zeros: every block's adds must find it
+// done and blocks run in no order, so folding it in needs a grid-wide barrier (a
+// cooperative, persistent launch) for ~0.006 ms of writes.
+// Resources (ptxas -v, sm_90a): __launch_bounds__(256, 6) gives 40 registers,
+// 24 bytes spilled, 6 blocks (48 warps) per SM, no shared memory. The
+// atomics make the order of the additions, and so the last bits of d_img, vary
+// from run to run.
+// Measured and not shipped (chip_smoke.py --kernels-only): (a) scalar adds
+// aggregated per address in every warp (__match_any_sync on each corner, plus the
+// neighbour merge), on K1's 8 x 32 tiles: 0.1728 ms for view synthesis, 0.0848
+// where few pixels land in the image (uniform_3x_plane); (b) block-private sums
+// in a shared-memory window of the source, flushed with one global add per
+// element: a float atomicAdd on shared memory compiles to a compare-and-swap loop
+// (ATOMS.CAST.SPIN) on sm_90, and 32 lanes on one address took 0.6256 ms;
+// (a) and (b) together: 0.2093 ms for view synthesis.
 
 #include "common.cuh"
 
@@ -191,35 +221,203 @@ warp_bilinear_bwd_coords_kernel(const T* __restrict__ img, const float* __restri
   dy[b * out_plane + pix] = ay;
 }
 
+// the thresholds of K5's per-warp paths (measured on the card: PERF.md)
+constexpr int kCoalescedLines = 10;  // a coalesced warp's top-left corners lie on at most this many 128-byte lines
+constexpr int kCoalescedDups = 8;    // and at most this many of them on the address of the lane before
+constexpr int kSparseLanes = 16;     // a sparse warp has at most this many pixels that add
+constexpr unsigned kFull = 0xffffffffu;
+
+// This lane's sum over its group `peers` (the lanes whose key equals its own),
+// for NV values at once: a tree over any set of lanes, contiguous or not, in
+// log2(group size) rounds of one shuffle per value. The whole group's sum ends
+// in its lowest lane. Every lane of the warp takes part.
+template <int NV>
+__device__ __forceinline__ void group_sums(unsigned peers, unsigned lane, float (&v)[NV]) {
+  unsigned rest = peers & (0xfffffffeu << lane);  // the group's lanes above this one
+  int rel = __popc(peers & ((1u << lane) - 1u));  // this lane's rank in its group
+  while (__any_sync(kFull, rest != 0)) {
+    const int next = __ffs(rest);  // 1 + the next lane of the group above, 0 if none
+#pragma unroll
+    for (int j = 0; j < NV; ++j) {
+      const float t = __shfl_sync(kFull, v[j], (next - 1) & 31);
+      if (next) v[j] += t;
+    }
+    rest &= ~__ballot_sync(kFull, rel & 1);  // lanes of odd rank were added in below
+    rel >>= 1;
+  }
+}
+
+// One atomic add of four consecutive floats at a 16-byte aligned address: on
+// sm_90 one reduction request in L2 for the four (atomicAdd on float4, whose
+// result is unused: a RED)
+__device__ __forceinline__ void red4(float* p, const float (&v)[4]) {
+  atomicAdd(reinterpret_cast<float4*>(p), make_float4(v[0], v[1], v[2], v[3]));
+}
+
+// Adds the 16-byte segment `seg` of a plane: nothing where all four are 0, a
+// scalar add where one is not, else one vector add (scalar adds where the
+// plane's segments are not 16-byte aligned)
+__device__ __forceinline__ void add_segment(float* plane, int seg, const float (&v)[4], bool vec) {
+  const int nz = (v[0] != 0.0f) + (v[1] != 0.0f) + (v[2] != 0.0f) + (v[3] != 0.0f);
+  if (nz == 0) return;
+  float* p = plane + 4 * (long long)seg;
+  if (nz > 1 && vec) {
+    red4(p, v);
+    return;
+  }
+#pragma unroll
+  for (int s = 0; s < 4; ++s)
+    if (v[s] != 0.0f) atomicAdd(p + s, v[s]);
+}
+
+// K5: one thread per output pixel, 256 consecutive pixels of a plane per block
+// (a warp is 32 consecutive pixels).
 template <typename T>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads, 6)
 warp_bilinear_bwd_image_kernel(const T* __restrict__ ct, const float* __restrict__ x,
                                const float* __restrict__ y, float* __restrict__ d_img,
-                               int C, int Hi, int Wi, long long out_plane) {
-  const long long pix = (long long)blockIdx.x * kThreads + threadIdx.x;
-  if (pix >= out_plane) return;
+                               int C, int Hi, int Wi, int Ho, int Wo) {
+  const int tid = threadIdx.x;
+  const unsigned lane = tid & 31;
+  const long long out_plane = (long long)Ho * Wo, in_plane = (long long)Hi * Wi;
+  const long long pix = (long long)blockIdx.x * kThreads + tid;
+  const bool live = pix < out_plane;
   const int b = blockIdx.y;
-  const Corners k = corners_at(x[b * out_plane + pix], y[b * out_plane + pix], Hi, Wi);
-  const float wx = k.wx, wy = k.wy;
-  const float w00 = k.m00 ? (1.0f - wx) * (1.0f - wy) : 0.0f;
-  const float w01 = k.m01 ? wx * (1.0f - wy) : 0.0f;
-  const float w10 = k.m10 ? (1.0f - wx) * wy : 0.0f;
-  const float w11 = k.m11 ? wx * wy : 0.0f;
-  if (w00 == 0.0f && w01 == 0.0f && w10 == 0.0f && w11 == 0.0f) return;
-  const long long in_plane = (long long)Hi * Wi;
 
+  // the four corners (00, 01, 10, 11): plane offsets and weights, 0 where masked
+  float w[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+  int o[4] = {0, 0, 0, 0};
+  if (live) {
+    const Corners k = corners_at(__ldg(x + b * out_plane + pix), __ldg(y + b * out_plane + pix), Hi, Wi);
+    w[0] = k.m00 ? (1.0f - k.wx) * (1.0f - k.wy) : 0.0f;
+    w[1] = k.m01 ? k.wx * (1.0f - k.wy) : 0.0f;
+    w[2] = k.m10 ? (1.0f - k.wx) * k.wy : 0.0f;
+    w[3] = k.m11 ? k.wx * k.wy : 0.0f;
+    o[0] = (int)k.o00;
+    o[1] = (int)k.o01;
+    o[2] = (int)k.o10;
+    o[3] = (int)k.o11;
+  }
+  const bool adds = w[0] != 0.0f || w[1] != 0.0f || w[2] != 0.0f || w[3] != 0.0f;
   float* dst = d_img + (long long)b * C * in_plane;
   const T* g = ct + (long long)b * C * out_plane + pix;
-  for (int c = 0; c < C; ++c) {
-    const float gc = ld(g);
-    if (gc != 0.0f) {
-      if (w00 != 0.0f) atomicAdd(dst + k.o00, gc * w00);
-      if (w01 != 0.0f) atomicAdd(dst + k.o01, gc * w01);
-      if (w10 != 0.0f) atomicAdd(dst + k.o10, gc * w10);
-      if (w11 != 0.0f) atomicAdd(dst + k.o11, gc * w11);
+
+  const bool vec = (in_plane & 3) == 0;  // the plane's 16-byte segments are aligned
+
+  // a sparse warp (few of its pixels land in the image): each lane adds its own
+  // corners, a row's two in one vector add where they share a segment
+  if (__popc(__ballot_sync(kFull, adds)) <= kSparseLanes) {
+    if (!adds) return;
+    bool pair[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) pair[r] = vec && w[2 * r] != 0.0f && w[2 * r + 1] != 0.0f && (o[2 * r] & 3) < 3;
+    for (int c = 0; c < C; ++c, dst += in_plane, g += out_plane) {
+      const float gc = ld(g);
+      if (gc == 0.0f) continue;
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        if (pair[r]) {
+          float v[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+          const int sl = o[2 * r] & 3;
+#pragma unroll
+          for (int s = 0; s < 3; ++s) {
+            if (s == sl) {
+              v[s] = gc * w[2 * r];
+              v[s + 1] = gc * w[2 * r + 1];
+            }
+          }
+          red4(dst + (o[2 * r] & ~3), v);
+        } else {
+          if (w[2 * r] != 0.0f) atomicAdd(dst + o[2 * r], gc * w[2 * r]);
+          if (w[2 * r + 1] != 0.0f) atomicAdd(dst + o[2 * r + 1], gc * w[2 * r + 1]);
+        }
+      }
     }
-    dst += in_plane;
-    g += out_plane;
+    return;
+  }
+
+  // a coalesced warp (its lanes' top-left corners on a few cache lines, few of them
+  // on the address of the lane before, as a near-identity warp puts them): each lane
+  // adds its own corners, one instruction per corner of every lane, which L2 takes
+  // as a few requests
+  {
+    const int prev = __shfl_up_sync(kFull, o[0], 1);
+    const bool prev_adds = __shfl_up_sync(kFull, adds, 1) && lane > 0;
+    const bool dup = adds && prev_adds && prev == o[0];
+    const bool new_line = adds && (!prev_adds || (prev >> 5) != (o[0] >> 5));
+    if (__popc(__ballot_sync(kFull, dup)) <= kCoalescedDups &&
+        __popc(__ballot_sync(kFull, new_line)) <= kCoalescedLines) {
+      // where a lane's right corner is the next lane's left one (a near-identity warp:
+      // nearly always), the next lane adds both: one add per address and row, not two
+      bool give[2], take[2];
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const int next_left = __shfl_down_sync(kFull, o[2 * r], 1);
+        const bool next_has_left = __shfl_down_sync(kFull, w[2 * r] != 0.0f, 1);
+        give[r] = lane < 31 && w[2 * r + 1] != 0.0f && next_has_left && next_left == o[2 * r + 1];
+        take[r] = __shfl_up_sync(kFull, give[r], 1) && lane > 0;
+      }
+      if (__all_sync(kFull, !adds)) return;
+      for (int c = 0; c < C; ++c, dst += in_plane, g += out_plane) {
+        const float gc = adds ? ld(g) : 0.0f;
+        if (!__any_sync(kFull, gc != 0.0f)) continue;
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          const float vr = gc * w[2 * r + 1];
+          const float from_left = __shfl_up_sync(kFull, vr, 1);
+          const float vl = gc * w[2 * r] + (take[r] ? from_left : 0.0f);
+          if (w[2 * r] != 0.0f && vl != 0.0f) atomicAdd(dst + o[2 * r], vl);
+          if (!give[r] && vr != 0.0f) atomicAdd(dst + o[2 * r + 1], vr);
+        }
+      }
+      return;
+    }
+  }
+
+  // a dense warp: per row of corners (top, bottom) a lane's piece is the 16-byte
+  // segment of its left corner (of its right one where the left adds nothing) with
+  // one or both corners in place; the key of a piece is its segment, or a negative
+  // number of the lane's own where the row adds nothing. A right corner that falls
+  // in the next segment is added on its own.
+  int key[2], slot_l[2], slot_r[2];
+  bool straddles[2];
+  unsigned peers[2];
+  bool grouped[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const float wl = w[2 * r], wr = w[2 * r + 1];
+    const int ol = o[2 * r], orr = o[2 * r + 1];
+    key[r] = -1 - (int)(lane * 2 + r);
+    slot_l[r] = slot_r[r] = -1;
+    straddles[r] = false;
+    if (wl != 0.0f) {
+      key[r] = ol >> 2;
+      slot_l[r] = ol & 3;
+      if (wr != 0.0f) {  // the right corner is ol + 1
+        if (slot_l[r] < 3) slot_r[r] = slot_l[r] + 1;
+        else straddles[r] = true;
+      }
+    } else if (wr != 0.0f) {
+      key[r] = orr >> 2;
+      slot_r[r] = orr & 3;
+    }
+    // the lanes whose piece has this segment; the group's lowest lane adds for all
+    peers[r] = __match_any_sync(kFull, key[r]);
+    grouped[r] = __any_sync(kFull, peers[r] != (1u << lane));
+  }
+  for (int c = 0; c < C; ++c, dst += in_plane, g += out_plane) {
+    const float gc = adds ? ld(g) : 0.0f;
+    if (!__any_sync(kFull, gc != 0.0f)) continue;  // a channel with no cotangent on this warp
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const float vl = gc * w[2 * r], vr = gc * w[2 * r + 1];
+      float v[4];
+#pragma unroll
+      for (int s = 0; s < 4; ++s) v[s] = (s == slot_l[r] ? vl : 0.0f) + (s == slot_r[r] ? vr : 0.0f);
+      if (grouped[r]) group_sums(peers[r], lane, v);
+      if (key[r] >= 0 && (peers[r] & ((1u << lane) - 1u)) == 0u) add_segment(dst, key[r], v, vec);
+      if (straddles[r] && vr != 0.0f) atomicAdd(dst + o[2 * r + 1], vr);
+    }
   }
 }
 
@@ -276,16 +474,14 @@ int sde_warp_bilinear_bwd_image(const void* ct, const void* x, const void* y, vo
                                 int B, int C, int Hi, int Wi, int Ho, int Wo, int is_bf16,
                                 int device, void* stream) {
   sde::DeviceGuard guard(device);
-  const long long out_plane = (long long)Ho * Wo;
-  dim3 grid((unsigned)((out_plane + kThreads - 1) / kThreads), (unsigned)B);
+  const dim3 grid((unsigned)(((long long)Ho * Wo + kThreads - 1) / kThreads), (unsigned)B);
   cudaStream_t s = (cudaStream_t)stream;
   if (is_bf16) {
     warp_bilinear_bwd_image_kernel<__nv_bfloat16><<<grid, kThreads, 0, s>>>(
-        (const __nv_bfloat16*)ct, (const float*)x, (const float*)y, (float*)d_img, C, Hi, Wi,
-        out_plane);
+        (const __nv_bfloat16*)ct, (const float*)x, (const float*)y, (float*)d_img, C, Hi, Wi, Ho, Wo);
   } else {
     warp_bilinear_bwd_image_kernel<float><<<grid, kThreads, 0, s>>>(
-        (const float*)ct, (const float*)x, (const float*)y, (float*)d_img, C, Hi, Wi, out_plane);
+        (const float*)ct, (const float*)x, (const float*)y, (float*)d_img, C, Hi, Wi, Ho, Wo);
   }
   return (int)cudaGetLastError();
 }

@@ -236,8 +236,8 @@ def warp_image_grad(x: torch.Tensor, y: torch.Tensor, ct: torch.Tensor, H: int, 
         raise TypeError(f"x, y must be float32, got {x.dtype} and {y.dtype}")
     if not (x.is_contiguous() and y.is_contiguous()):
         raise ValueError("x and y must be contiguous")
-    if B > 65535:
-        raise ValueError(f"batch {B} exceeds the kernel's grid limit of 65535")
+    if B > 65535 or H * W >= 2**31:
+        raise ValueError(f"batch {B} or plane {H}x{W} exceeds the kernel's grid limit (65535) or plane size (2^31)")
     ct = ct.contiguous()  # autograd may hand over a strided or expanded (stride-0) view
     d_image = torch.zeros((B, C, H, W), dtype=torch.float32, device=ct.device)
     if d_image.numel() == 0 or ct.numel() == 0:

@@ -70,6 +70,35 @@ def test_photometric_kernel_matches_plain(shape, card, rng):
     assert (out - photometric_map_plain(a, b, 0.85, 1e-4, 9e-4)).abs().max().item() <= 1e-5
 
 
+# the forward's tiles are 64 columns by 32 rows (16 rows where the grid of 32-row tiles
+# would not fill the card once: (64, 3, 70, 150) takes 32-row tiles, the rest 16-row ones),
+# each staged with a reflected one-pixel halo: planes that are not a multiple of either, and
+# H or W of 2 and 3, where the reflection folds the halo onto the plane's other side
+@pytest.mark.parametrize("shape", [(2, 3, 2, 70), (1, 3, 3, 65), (2, 3, 33, 2), (2, 3, 35, 3), (1, 3, 45, 130),
+                                   (3, 2, 31, 127), (64, 3, 70, 150)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_photometric_kernel_ragged_tiles(shape, dtype, card, rng):
+    a = _rand(rng, *shape).to(card).to(dtype)
+    b = (0.8 * a.float() + 0.2 * _rand(rng, *shape).to(card)).to(dtype)
+    before = photometric_map.launches
+    out = photometric_map(a, b, 0.85, 1e-4, 9e-4)
+    torch.cuda.synchronize()
+    assert photometric_map.launches == before + 1
+    assert out.shape == (shape[0], 1, *shape[2:]) and out.dtype == torch.float32
+    # bfloat16 inputs convert to float32 exactly on both sides: the float32 limit holds
+    assert (out - photometric_map_plain(a, b, 0.85, 1e-4, 9e-4)).abs().max().item() <= 1e-5
+
+
+@pytest.mark.parametrize("shape", [(2, 3, 37, 83), (1, 3, 2, 3), (64, 3, 70, 150)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_photometric_kernel_tie_gives_zero(shape, dtype, card, rng):
+    """a == b: every window's numerator equals its denominator and |a - b| = 0,
+    so the map is exactly 0, as the plain version's."""
+    a = _rand(rng, *shape).to(card).to(dtype)
+    assert torch.count_nonzero(photometric_map(a, a.clone(), 0.85, 1e-4, 9e-4)) == 0
+    assert torch.count_nonzero(photometric_map_plain(a, a.clone(), 0.85, 1e-4, 9e-4)) == 0
+
+
 @pytest.mark.parametrize("shape,out_hw", [((2, 3, 37, 83), (37, 83)), ((1, 1, 8, 8), (8, 8)),
                                           ((2, 5, 37, 83), (21, 45)), ((3, 3, 64, 640), (64, 640))])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
@@ -154,6 +183,45 @@ def test_warp_image_grad_kernel_matches_plain(shape, out_hw, dtype, card, rng):
     assert img.grad.dtype == dtype
     torch.testing.assert_close(img.grad.float(), want.to(dtype).float(), atol=2e-5 if dtype == torch.float32 else 1e-2,
                                rtol=1e-5 if dtype == torch.float32 else 2.0**-7)
+
+
+def _shared_corner_coords(case, rng, B, h, w, H, W):
+    """Coordinates whose corners many lanes of a warp (32 consecutive pixels of a row) share."""
+    cols = torch.arange(w, dtype=torch.float32).expand(B, h, w)
+    rows = torch.arange(h, dtype=torch.float32)[:, None].expand(B, h, w)
+    if case == "one_address":  # every pixel of a plane at one point
+        return torch.full((B, h, w), W * 0.37 + 0.25), torch.full((B, h, w), H * 0.61 + 0.5)
+    if case == "one_address_per_warp":  # each warp's 32 pixels at one point of their own
+        return (cols // 32) * 2.5 + 1.25, rows * 0.75 + 0.5
+    if case == "adjacent_lanes":  # a shift: lane j's right corners are lane j+1's left ones
+        return cols * (W - 2.0) / w + 0.3, rows * (H - 2.0) / h + 0.6
+    # neighbours on one corner but not all: a slow, noisy drift, some pixels clamped to the border
+    x = cols * 0.4 + 3.0 + _rand(rng, B, h, w) * 2.0 - 1.0
+    y = rows * 0.4 - 2.0 + _rand(rng, B, h, w) * 2.0
+    return x.clamp(0, W - 1.0), y.clamp(0, H - 1.0)
+
+
+@pytest.mark.parametrize("case", ["one_address", "one_address_per_warp", "adjacent_lanes", "drift_clamped"])
+@pytest.mark.parametrize("shape,out_hw", [((2, 3, 37, 83), (37, 83)), ((2, 3, 128, 416), (128, 416)),
+                                          ((1, 5, 44, 300), (52, 300))])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_warp_image_grad_kernel_shared_corners(case, shape, out_hw, dtype, card, rng):
+    """The image cotangent where lanes share addresses (the sums of a warp's groups
+    and of the block's window) against the plain version, to 2e-5 plus 1e-5 of the
+    sum of the terms' sizes."""
+    B, C, H, W = shape
+    h, w = out_hw
+    x, y = _shared_corner_coords(case, rng, B, h, w, H, W)
+    x, y = x.contiguous().to(card), y.contiguous().to(card)
+    ct = (_rand(rng, B, C, h, w) - 0.5).to(card).to(dtype)
+    before = warp_bilinear.bwd_image_launches
+    got = warp_image_grad(x, y, ct, H, W)
+    torch.cuda.synchronize()
+    assert warp_bilinear.bwd_image_launches == before + 1
+    want = warp_image_grad_plain(x, y, ct.float(), H, W)
+    scale = warp_image_grad_plain(x, y, ct.float().abs(), H, W)
+    assert want.abs().max().item() > 0
+    assert ((got - want).abs() <= 2e-5 + 1e-5 * scale).all()
 
 
 def test_warp_forward_then_image_gradient_chain(card, rng):
