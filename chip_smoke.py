@@ -16,8 +16,15 @@ prints one JSON line; a failed phase raises, so the exit code is non-zero and
 the closing line is not printed. Without a CUDA device it exits non-zero at
 once: nothing here falls back to the CPU.
 
+Both models are the shipped ``projects/{MonoDepth2,MotionLearning}/configs/resnet18.yaml``
+as they stand (encoder ``"18pt"``): each train phase prints one ``warm_start``
+line with the weight file the ImageNet warm start found (``null``: none in
+reach, the encoder keeps its seeded weights, and the port's warning about it
+goes to standard error).
+
 Phases: device, build, kernels, main_path, train_path, motion_train_path,
-cpu_agreement, cpu_agreement_train_step, cpu_agreement_motion_train_step (and,
+cpu_agreement (float32, then ``cpu_agreement_bf16``: the loss pass and depth in
+bfloat16 against the CPU copy), cpu_agreement_train_step, cpu_agreement_motion_train_step (and,
 with ``--profile``, a torch.profiler breakdown of the forward calls and of both
 train steps by kernel). Then one line ``{"kernels": [...]}`` with one entry per kernel
 at the main path's largest shape, the card's name and power limit as nvidia-smi
@@ -71,6 +78,20 @@ BF16_VJP_RTOL = 2.0**-7
 # cancel (worst measured: 1.4e-3 at the encoder's bn1.bias, while the global norm agreed to 1.2e-5)
 GRAD_AGREE_RTOL = 5e-3
 GRAD_NORM_RTOL = 1e-4
+# The bfloat16 loss pass, card vs CPU copy, relative: both round the same operands to bfloat16 at
+# the same places, but cuDNN and the CPU's convolutions sum in other orders and each rounds its
+# result to bfloat16 (a relative step of up to 2^-7), through some twenty convolutions of the two
+# nets; depth_pred per pixel, its largest, mean and median error. Where both sides round at the
+# same places most pixels leave the last convolution and its sigmoid on the same bfloat16 value,
+# so the median is one float32 rounding at most; a cast at another place moves every pixel.
+# Measured on the card (NVIDIA H100 80GB HBM3, 700 W): losses 1.5e-4, depth 1.16e-2, mean 1.2e-3,
+# median 0; limits about 3x that, the median's 1e-5
+BF16_AGREE_LOSS_RTOL = 5e-4
+BF16_AGREE_DEPTH_RTOL, BF16_AGREE_DEPTH_MEAN_RTOL, BF16_AGREE_DEPTH_MEDIAN_RTOL = 3e-2, 3e-3, 1e-5
+BF16_AGREE_REASON = ("bfloat16 convolutions summed in another order on each side, each result rounded to "
+                     "bfloat16 (2^-7 relative) through ~20 convolutions; limits about 3x the errors measured "
+                     "on the card (losses 1.5e-4, depth per pixel 1.16e-2, mean 1.2e-3); the median 1e-5: "
+                     "most pixels on the same bfloat16 value where both round at the same places (measured 0)")
 TRAIN_FIXED_STEPS, TRAIN_FRESH_STEPS = 8, 3
 TIMED_STEPS = 10  # steady state: train steps back to back, one wait at the end
 
@@ -85,6 +106,16 @@ MOTION_HW = (128, 416)  # projects/MotionLearning/configs/Base.yaml: Resize IMG_
 
 def emit(obj) -> None:
     print(json.dumps(obj), flush=True)
+
+
+def emit_warm_start(model: str, cfg, state) -> None:
+    """One line per model: its encoder name and the weight file its warm start
+    found (``None``: the encoder keeps its seeded weights; the port's logger
+    says so on standard error at each state made)."""
+    name = str(cfg.MODEL.DEPTH_NET.ENCODER_NAME)
+    emit({"phase": "warm_start", "model": model, "encoder_name": name, "weights_file": state.pretrained_weights})
+    if not name.endswith("pt"):
+        raise AssertionError(f"the shipped config names no ImageNet-pretrained encoder: {name}")
 
 
 def nvidia_smi_line() -> str:
@@ -711,14 +742,11 @@ def phase_kernels(device):
             x, y = rand(2, oh, ow) * (Wi + 6) - 3, rand(2, oh, ow) * (Hi + 6) - 3
             check_warp_bwd_image(x, y, (rand(2, 3, oh, ow) - 0.5).to(dtype), Hi, Wi, label + tag, timed=False)
 
-    # K5 on the inputs of its launch in a MotionLearning train step (the main path's own)
-    x, y, ct, Hi, Wi = motion_step_image_grad_inputs(device)
-    check_warp_bwd_image(x, y, ct, Hi, Wi, "motion_step", timed=True)
-
     # K1 and K3 at the MotionLearning step's shapes: the RGB-D warp of frame and depth
     # ([2B,4,H,W], depth in metres) and the cycle loss's warp of the [2B,3,H,W] reverse
     # translation field at the same coordinates. The warp's limit is one rounding of the
-    # result, so it scales with the largest value (the depth's)
+    # result, so it scales with the largest value (the depth's). Before the next case, the
+    # only one that builds a model, so that --kernels-only times every K3 case of an older tree
     for dtype, warp_tol, tag in ((torch.float32, F32_TOL, ""), (torch.bfloat16, BF16_WARP_TOL, "_bf16")):
         image, x, y = synthesis_coords(29, NM, mh, mw, device)
         rgbd = torch.cat([image, 0.5 + 30.0 * rand(NM, 1, mh, mw)], dim=1).to(dtype)
@@ -726,6 +754,10 @@ def phase_kernels(device):
         check_warp(rgbd, x, y, rgbd_tol, "motion_rgbd" + tag, timed=True)
         check_warp_bwd(rgbd, x, y, (rand(NM, 4, mh, mw) - 0.5).to(dtype), BWD_RTOL, "motion_rgbd" + tag, timed=True)
         check_warp(image.to(dtype), x, y, warp_tol, "motion_cycle" + tag, timed=True)
+
+    # K5 on the inputs of its launch in a MotionLearning train step (the main path's own)
+    x, y, ct, Hi, Wi = motion_step_image_grad_inputs(device)
+    check_warp_bwd_image(x, y, ct, Hi, Wi, "motion_step", timed=True)
 
     # all four kernels in a row, at the second plane
     h, w = PLANES[1]
@@ -755,8 +787,7 @@ def smoke_cfg(extra=()):
     root = os.path.dirname(os.path.abspath(__file__))
     cfg = get_cfg()
     cfg.merge_from_file(os.path.join(root, "projects", "MonoDepth2", "configs", "resnet18.yaml"))
-    # the ImageNet-pretrained encoder ("18pt") needs a weight file the repository does not hold
-    cfg.merge_from_list(["MODEL.DEPTH_NET.ENCODER_NAME", "18", *extra])
+    cfg.merge_from_list(list(extra))
     return cfg
 
 
@@ -913,6 +944,7 @@ def phase_train_path(device):
     steps_per_epoch = 4  # so that the rate drops at step 60 = LR_STEPS 15 epochs: not reached here
     torch.cuda.reset_peak_memory_stats()
     state = create_train_state(cfg, generator=torch.Generator().manual_seed(0), steps_per_epoch=steps_per_epoch)
+    emit_warm_start("MonoDepth2-R18", cfg, state)
     if next(state.model.parameters()).device.type != "cuda":
         raise AssertionError("create_train_state did not place the model on the card")
     step = make_train_step(state, grad_clip=float(cfg.SOLVER.GRAD_CLIP))
@@ -960,7 +992,7 @@ def motion_cfg(extra=()):
     root = os.path.dirname(os.path.abspath(__file__))
     cfg = get_cfg()
     cfg.merge_from_file(os.path.join(root, "projects", "MotionLearning", "configs", "resnet18.yaml"))
-    cfg.merge_from_list(["MODEL.DEPTH_NET.ENCODER_NAME", "18", *extra])
+    cfg.merge_from_list(list(extra))
     return cfg
 
 
@@ -1028,6 +1060,7 @@ def phase_motion_train_path(device):
         raise AssertionError(f"config gives B={B}; the kernel phase assumed {SMOKE_B}")
     torch.cuda.reset_peak_memory_stats()
     state = create_train_state(cfg, generator=torch.Generator().manual_seed(0), steps_per_epoch=4)
+    emit_warm_start("MotionLearning-R18", cfg, state)
     if next(state.model.parameters()).device.type != "cuda" or state.noise_generator.device.type != "cuda":
         raise AssertionError("create_train_state did not place the model and its noise generator on the card")
     step = make_train_step(state, grad_clip=float(cfg.SOLVER.GRAD_CLIP), schedule_fn=lambda i: MOTION_SCHEDULE)
@@ -1183,24 +1216,32 @@ def profile_paths(device, top: int = 14):
     _profile(lambda: mstep(mbatch), "motion_train_step", top)
 
 
-def phase_cpu_agreement(device):
+def _forward_both(cfg, batch_cpu, device):
+    """``depth_pred`` and the loss dict of one set of seeded weights, on the card
+    and on a CPU copy of the model."""
     import torch
 
     from simpledepthestimation_tpu_torch.models import build_model
 
-    torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_tf32 = False
-    cfg = smoke_cfg(["TPU.COMPUTE_DTYPE", "float32"])
     on_card = build_model(cfg, generator=torch.Generator().manual_seed(1))
     on_cpu = build_model(cfg, device="cpu", generator=torch.Generator().manual_seed(2))
     on_cpu.load_state_dict(on_card.state_dict())
-    batch_cpu = make_batch(200, 2, 64, 256, SMOKE_N, "cpu")
     batch_card = {k: v.to(device) for k, v in batch_cpu.items()}
     with torch.no_grad():
         d_card = on_card(batch_card, train=False)["depth_pred"].cpu()
         d_cpu = on_cpu(batch_cpu, train=False)["depth_pred"]
         l_card = {k: v.item() for k, v in on_card(batch_card, train=True).items()}
         l_cpu = {k: v.item() for k, v in on_cpu(batch_cpu, train=True).items()}
+    return d_card, d_cpu, l_card, l_cpu
+
+
+def phase_cpu_agreement(device):
+    import torch
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = smoke_cfg(["TPU.COMPUTE_DTYPE", "float32"])
+    d_card, d_cpu, l_card, l_cpu = _forward_both(cfg, make_batch(200, 2, 64, 256, SMOKE_N, "cpu"), device)
     depth_err = ((d_card - d_cpu).abs() / d_cpu.abs().clamp_min(1.0)).max().item()
     loss_err = {k: abs(l_card[k] - l_cpu[k]) / abs(l_cpu[k]) for k in l_cpu}
     emit({"phase": "cpu_agreement", "shape": [2, 64, 256], "rtol": AGREE_RTOL,
@@ -1211,6 +1252,25 @@ def phase_cpu_agreement(device):
     # one float32 train step on the card (kernels) and on the CPU copy (plain versions)
     _agree_train_step("cpu_agreement_train_step", cfg, make_batch(201, 2, 64, 256, SMOKE_N, "cpu", smooth=True),
                       device)
+
+    # the same forward in bfloat16, the shipped yaml's dtype, on a smooth batch (the warp reaches the loss)
+    cfg = smoke_cfg()
+    d_card, d_cpu, l_card, l_cpu = _forward_both(cfg, make_batch(201, 2, 64, 256, SMOKE_N, "cpu", smooth=True),
+                                                 device)
+    depth_rel = (d_card - d_cpu).abs() / d_cpu.abs()
+    loss_err = {k: abs(l_card[k] - l_cpu[k]) / abs(l_cpu[k]) for k in l_cpu}
+    rec = {"phase": "cpu_agreement_bf16", "shape": [2, 64, 256], "compute_dtype": str(cfg.TPU.COMPUTE_DTYPE),
+           "loss_rel_err": loss_err, "loss_rtol": BF16_AGREE_LOSS_RTOL, "depth_rel_err_max": depth_rel.max().item(),
+           "depth_rel_err_mean": depth_rel.mean().item(), "depth_rel_err_median": depth_rel.median().item(),
+           "depth_rtol_max": BF16_AGREE_DEPTH_RTOL, "depth_rtol_median": BF16_AGREE_DEPTH_MEDIAN_RTOL,
+           "depth_rtol_mean": BF16_AGREE_DEPTH_MEAN_RTOL, "reason": BF16_AGREE_REASON,
+           "losses_card": l_card, "losses_cpu": l_cpu}
+    emit(rec)
+    if (set(l_card) != set(l_cpu) or any(e > BF16_AGREE_LOSS_RTOL for e in loss_err.values())
+            or rec["depth_rel_err_max"] > BF16_AGREE_DEPTH_RTOL or rec["depth_rel_err_mean"] > BF16_AGREE_DEPTH_MEAN_RTOL
+            or rec["depth_rel_err_median"] > BF16_AGREE_DEPTH_MEDIAN_RTOL
+            or not torch.isfinite(d_card).all()):
+        raise AssertionError("the card's bfloat16 forward disagrees with the CPU copy of the model")
 
 
 def main() -> int:

@@ -43,11 +43,44 @@
 // _call_tiled_bwd), _bwd_kernel (via _call_bwd_coords) and _bwd_kernel_v2 (via
 // _call_bwd_coords_v2) of the same file, which fold both sums into one banded
 // matrix product per tile. Bound: bytes, B*H*W*(8 + 8 + 2*s*C): coordinates in,
-// two cotangent planes out, per channel one image value and one ct value.
-// Design: K1's thread layout and K1's corner arithmetic (one shared routine, so
-// forward and backward agree on every mask), the channel sum held in two
-// registers: every output is written by exactly one thread, no atomics, so the
-// result is deterministic. ct is read in the image's type and summed in float32.
+// two cotangent planes out, per channel one image value and one ct value
+// (0.0470 ms at [32,3,192,640] float32, 0.0329 bfloat16, 0.0244 at the RGB-D
+// warp's [32,4,128,416] float32).
+// Design: K1's block (one thread per output pixel, 8 x 32 tiles of one plane:
+// the corner rows one output row gathers are the next rows' too, and L1 keeps
+// them) and K1's corner routine (so forward and backward agree on every clamp
+// and mask), 32-bit offsets into a plane, the coordinates read through the
+// read-only path. The four clamped corners are always loadable, so each is
+// loaded unconditionally and its mask applied as a select on the value; all
+// 4*C corner loads and C cotangent loads of a pixel are in flight before the
+// sums, the channel loop compiled for C = 3 (MonoDepth2) and C = 4 (the RGB-D
+// warp), the generic loop four channels at a time. Every pixel goes through
+// the same loads and sums, so a non-finite cotangent gives NaN wherever the
+// plain version's does. The sums keep the plain version's order (difference,
+// then weight, channel after channel) in float32; each output has one writer,
+// no atomics, so the result is deterministic. ct is read in the image's type.
+// Resources (ptxas -v, sm_90a): C = 3 and 4, float32 and bfloat16: 32
+// registers, no spills, __launch_bounds__(256, 8): 8 blocks (64 warps) per SM;
+// the generic loop __launch_bounds__(256, 4): 55 (bfloat16 53) registers, no
+// spills (at 6 blocks, 40 registers, it spilled 28-36 bytes). Measured
+// (chip_smoke.py --kernels-only, NVIDIA H100 80GB HBM3, 700 W, device time,
+// two runs): 0.0648 / 0.0652 ms at [32,3,192,640] float32 (the earlier form,
+// a flat grid of 256 consecutive pixels a block, 64-bit offsets, loads
+// branched on their masks, in the same call: 0.1028 / 0.1027), bfloat16
+// 0.0578 / 0.0589 (0.0926), the RGB-D warp 0.0339 (0.0525). Where 8/9 of the
+// pixels fall wholly outside (uniform coordinates over three planes) it loads
+// what the earlier form skipped: 0.0827 (0.0888), and on the small planes
+// slower than it (0.0058 against 0.0045 at [32,3,48,160]). Measured in an
+// earlier call and not shipped, each on a tree that shipped it (view
+// synthesis at [32,3,192,640] float32 / bfloat16, that uniform case, the
+// RGB-D warp): a skip of the wholly outside pixels 0.0644 / 0.0590, 0.0545,
+// 0.0302-0.0337 (it answered 0 where a non-finite cotangent gives NaN); two
+// neighbouring pixels of a row a thread (8 x 64 tiles, 8-byte coordinate and
+// output accesses, 40-64 registers, 4 blocks per SM) 0.0699 / 0.0563, 0.0591,
+// 0.0387; loads branched on their own corner's mask 0.0664 / 0.0601, 0.0557,
+// 0.0427 (spills at C = 4); the channel loop not specialised 0.0840 / 0.0782,
+// 0.0791, 0.0404. Not tried: staging the block's source box in shared memory
+// (slower than the direct gathers for K1, see above).
 //
 // K5, backward in the image (coordinates held constant): the transpose of K1,
 //   d_img[b,c,r,w] = sum over (i,j) and corners (r,w) of ct[b,c,i,j] * weight,
@@ -161,16 +194,16 @@ __device__ __forceinline__ FwdPixel fwd_pixel(float xv, float yv, int Hi, int Wi
   return p;
 }
 
-// the forward's block: a tile of kFwdRows x kFwdCols output pixels of one plane
-constexpr int kFwdRows = 8, kFwdCols = kThreads / kFwdRows;
+// the block of K1 and K3: a tile of kTileRows x kTileCols output pixels of one plane
+constexpr int kTileRows = 8, kTileCols = kThreads / kTileRows;
 
 template <typename T>
 __global__ void __launch_bounds__(kThreads, 8)
 warp_bilinear_fwd_kernel(const T* __restrict__ img, const float* __restrict__ x,
                          const float* __restrict__ y, T* __restrict__ out,
                          int C, int Hi, int Wi, int Ho, int Wo) {
-  const int row = blockIdx.y * kFwdRows + threadIdx.x / kFwdCols;
-  const int col = blockIdx.x * kFwdCols + threadIdx.x % kFwdCols;
+  const int row = blockIdx.y * kTileRows + threadIdx.x / kTileCols;
+  const int col = blockIdx.x * kTileCols + threadIdx.x % kTileCols;
   if (row >= Ho || col >= Wo) return;
   const int b = blockIdx.z;
   const long long out_plane = (long long)Ho * Wo;
@@ -190,35 +223,92 @@ warp_bilinear_fwd_kernel(const T* __restrict__ img, const float* __restrict__ x,
   }
 }
 
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-warp_bilinear_bwd_coords_kernel(const T* __restrict__ img, const float* __restrict__ x,
-                                const float* __restrict__ y, const T* __restrict__ ct,
-                                float* __restrict__ dx, float* __restrict__ dy,
-                                int C, int Hi, int Wi, long long out_plane) {
-  const long long pix = (long long)blockIdx.x * kThreads + threadIdx.x;
-  if (pix >= out_plane) return;
-  const int b = blockIdx.y;
-  const Corners k = corners_at(x[b * out_plane + pix], y[b * out_plane + pix], Hi, Wi);
-  const float wx = k.wx, wy = k.wy;
-  const long long in_plane = (long long)Hi * Wi;
+// One output pixel of the coordinate backward: the corners' offsets into a
+// plane (clamped, so always loadable), their masks and the fractions.
+struct BwdPixel {
+  int o00, o01, o10, o11;  // the wrapper keeps Hi*Wi below 2^31
+  bool m00, m01, m10, m11;
+  float wx, wy;
+};
 
-  const T* src = img + (long long)b * C * in_plane;
-  const T* g = ct + (long long)b * C * out_plane + pix;
-  float ax = 0.0f, ay = 0.0f;
-  for (int c = 0; c < C; ++c) {
-    const float v00 = k.m00 ? ld(src + k.o00) : 0.0f;
-    const float v01 = k.m01 ? ld(src + k.o01) : 0.0f;
-    const float v10 = k.m10 ? ld(src + k.o10) : 0.0f;
-    const float v11 = k.m11 ? ld(src + k.o11) : 0.0f;
-    const float gc = ld(g);
-    ax += gc * ((v01 - v00) * (1.0f - wy) + (v11 - v10) * wy);
-    ay += gc * ((v10 - v00) * (1.0f - wx) + (v11 - v01) * wx);
+__device__ __forceinline__ BwdPixel bwd_pixel(float xv, float yv, int Hi, int Wi) {
+  const Corners k = corners_at(xv, yv, Hi, Wi);
+  return {(int)k.o00, (int)k.o01, (int)k.o10, (int)k.o11, k.m00, k.m01, k.m10, k.m11, k.wx, k.wy};
+}
+
+// N consecutive channels of one pixel (from src and g on): all 4*N corner loads and N cotangent
+// loads issued first, then the sums in the plain version's order (difference,
+// then weight; channel after channel). A masked corner's value is selected
+// away after its load, not branched around.
+template <int N, typename T>
+__device__ __forceinline__ void bwd_channels(const T* __restrict__ src, const T* __restrict__ g,
+                                             int in_plane, long long out_plane, const BwdPixel& p,
+                                             float& ax, float& ay) {
+  float v[N][4], gc[N];
+#pragma unroll
+  for (int c = 0; c < N; ++c) {
+    v[c][0] = ld(src + p.o00);
+    v[c][1] = ld(src + p.o01);
+    v[c][2] = ld(src + p.o10);
+    v[c][3] = ld(src + p.o11);
+    gc[c] = ld(g);
     src += in_plane;
     g += out_plane;
   }
-  dx[b * out_plane + pix] = ax;
-  dy[b * out_plane + pix] = ay;
+#pragma unroll
+  for (int c = 0; c < N; ++c) {
+    const float v00 = p.m00 ? v[c][0] : 0.0f, v01 = p.m01 ? v[c][1] : 0.0f;
+    const float v10 = p.m10 ? v[c][2] : 0.0f, v11 = p.m11 ? v[c][3] : 0.0f;
+    ax += gc[c] * ((v01 - v00) * (1.0f - p.wy) + (v11 - v10) * p.wy);
+    ay += gc[c] * ((v10 - v00) * (1.0f - p.wx) + (v11 - v01) * p.wx);
+  }
+}
+
+// The channel sums of one pixel. CN > 0: the channel count, fixed at compile
+// time (3: MonoDepth2's frames, 4: MotionLearning's RGB-D warp); CN = 0: C
+// channels, four at a time.
+template <int CN, typename T>
+__device__ __forceinline__ void bwd_sums(const T* __restrict__ src, const T* __restrict__ g, int C,
+                                         int in_plane, long long out_plane, const BwdPixel& p,
+                                         float& ax, float& ay) {
+  if constexpr (CN > 0) {
+    bwd_channels<CN>(src, g, in_plane, out_plane, p, ax, ay);
+  } else {
+    int c = 0;
+    for (; c + 4 <= C; c += 4) {
+      bwd_channels<4>(src, g, in_plane, out_plane, p, ax, ay);
+      src += 4LL * in_plane;
+      g += 4 * out_plane;
+    }
+    for (; c < C; ++c) {
+      bwd_channels<1>(src, g, in_plane, out_plane, p, ax, ay);
+      src += in_plane;
+      g += out_plane;
+    }
+  }
+}
+
+// K3: one thread per output pixel, one block per 8 x 32 tile of one plane
+template <typename T, int CN>
+__global__ void __launch_bounds__(kThreads, CN > 0 ? 8 : 4)
+warp_bilinear_bwd_coords_kernel(const T* __restrict__ img, const float* __restrict__ x,
+                                const float* __restrict__ y, const T* __restrict__ ct,
+                                float* __restrict__ dx, float* __restrict__ dy,
+                                int C, int Hi, int Wi, int Ho, int Wo) {
+  const int row = blockIdx.y * kTileRows + threadIdx.x / kTileCols;
+  const int col = blockIdx.x * kTileCols + threadIdx.x % kTileCols;
+  if (row >= Ho || col >= Wo) return;
+  const int b = blockIdx.z;
+  const long long out_plane = (long long)Ho * Wo;
+  const long long at = (long long)row * Wo + col;  // the pixel in its plane
+  const long long pix = b * out_plane + at;
+  const BwdPixel p = bwd_pixel(__ldg(x + pix), __ldg(y + pix), Hi, Wi);
+  const int in_plane = Hi * Wi;
+  float ax = 0.0f, ay = 0.0f;
+  bwd_sums<CN>(img + (long long)b * C * in_plane, ct + (long long)b * C * out_plane + at, C, in_plane,
+               out_plane, p, ax, ay);
+  dx[pix] = ax;
+  dy[pix] = ay;
 }
 
 // the thresholds of K5's per-warp paths (measured on the card: PERF.md)
@@ -421,6 +511,21 @@ warp_bilinear_bwd_image_kernel(const T* __restrict__ ct, const float* __restrict
   }
 }
 
+// K3's launch: the kernel specialised for the channel count where there is one
+template <typename T>
+void launch_bwd_coords(const T* img, const void* x, const void* y, const T* ct, void* dx, void* dy, int C,
+                       int Hi, int Wi, int Ho, int Wo, dim3 grid, cudaStream_t s) {
+  const float *xf = (const float*)x, *yf = (const float*)y;
+  float *dxf = (float*)dx, *dyf = (float*)dy;
+  if (C == 3) {
+    warp_bilinear_bwd_coords_kernel<T, 3><<<grid, kThreads, 0, s>>>(img, xf, yf, ct, dxf, dyf, C, Hi, Wi, Ho, Wo);
+  } else if (C == 4) {
+    warp_bilinear_bwd_coords_kernel<T, 4><<<grid, kThreads, 0, s>>>(img, xf, yf, ct, dxf, dyf, C, Hi, Wi, Ho, Wo);
+  } else {
+    warp_bilinear_bwd_coords_kernel<T, 0><<<grid, kThreads, 0, s>>>(img, xf, yf, ct, dxf, dyf, C, Hi, Wi, Ho, Wo);
+  }
+}
+
 }  // namespace
 
 extern "C" {
@@ -432,7 +537,7 @@ int sde_warp_bilinear_fwd(const void* img, const void* x, const void* y, void* o
                           int B, int C, int Hi, int Wi, int Ho, int Wo,
                           int is_bf16, int device, void* stream) {
   sde::DeviceGuard guard(device);
-  dim3 grid((unsigned)((Wo + kFwdCols - 1) / kFwdCols), (unsigned)((Ho + kFwdRows - 1) / kFwdRows),
+  dim3 grid((unsigned)((Wo + kTileCols - 1) / kTileCols), (unsigned)((Ho + kTileRows - 1) / kTileRows),
             (unsigned)B);
   cudaStream_t s = (cudaStream_t)stream;
   if (is_bf16) {
@@ -452,17 +557,13 @@ int sde_warp_bilinear_bwd_coords(const void* img, const void* x, const void* y, 
                                  void* dx, void* dy, int B, int C, int Hi, int Wi, int Ho,
                                  int Wo, int is_bf16, int device, void* stream) {
   sde::DeviceGuard guard(device);
-  const long long out_plane = (long long)Ho * Wo;
-  dim3 grid((unsigned)((out_plane + kThreads - 1) / kThreads), (unsigned)B);
+  const dim3 grid((unsigned)((Wo + kTileCols - 1) / kTileCols), (unsigned)((Ho + kTileRows - 1) / kTileRows),
+                  (unsigned)B);
   cudaStream_t s = (cudaStream_t)stream;
   if (is_bf16) {
-    warp_bilinear_bwd_coords_kernel<__nv_bfloat16><<<grid, kThreads, 0, s>>>(
-        (const __nv_bfloat16*)img, (const float*)x, (const float*)y, (const __nv_bfloat16*)ct,
-        (float*)dx, (float*)dy, C, Hi, Wi, out_plane);
+    launch_bwd_coords((const __nv_bfloat16*)img, x, y, (const __nv_bfloat16*)ct, dx, dy, C, Hi, Wi, Ho, Wo, grid, s);
   } else {
-    warp_bilinear_bwd_coords_kernel<float><<<grid, kThreads, 0, s>>>(
-        (const float*)img, (const float*)x, (const float*)y, (const float*)ct, (float*)dx,
-        (float*)dy, C, Hi, Wi, out_plane);
+    launch_bwd_coords((const float*)img, x, y, (const float*)ct, dx, dy, C, Hi, Wi, Ho, Wo, grid, s);
   }
   return (int)cudaGetLastError();
 }

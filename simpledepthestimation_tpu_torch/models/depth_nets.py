@@ -41,13 +41,8 @@ class DepthResNet(nn.Module):
     def __init__(self, num_layers: int = 18, pretrained: bool = False, max_depth: float = 80.0,
                  upsample_depth: bool = False, compute_dtype: torch.dtype = torch.float32):
         super().__init__()
-        if pretrained:
-            raise NotImplementedError(
-                "ImageNet-pretrained encoders ('18pt', ...) are not available in this package "
-                "yet: no weight file ships with the repository. Override "
-                "MODEL.DEPTH_NET.ENCODER_NAME with the bare depth (e.g. 18) to start from "
-                "seeded random weights."
-            )
+        # an ImageNet warm start: models.pretrained loads it (parallel.create_train_state)
+        self.pretrained = pretrained
         self.max_depth = max_depth
         self.upsample_depth = upsample_depth
         self.encoder = ResNetEncoder(num_layers, compute_dtype=compute_dtype)

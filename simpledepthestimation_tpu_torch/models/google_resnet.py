@@ -226,13 +226,8 @@ class GoogleResNet(nn.Module):
                  learn_scale: bool = False, upsample_depth: bool = False,
                  compute_dtype: torch.dtype = torch.float32):
         super().__init__()
-        if pretrained:
-            raise NotImplementedError(
-                "ImageNet-pretrained encoders ('18pt', ...) are not available in this package "
-                "yet: no weight file ships with the repository. Override "
-                "MODEL.DEPTH_NET.ENCODER_NAME with the bare depth (e.g. 18) to start from "
-                "seeded random weights."
-            )
+        # an ImageNet warm start: models.pretrained loads it (parallel.create_train_state)
+        self.pretrained = pretrained
         self.upsample_depth = upsample_depth
         self.encoder = NormResNetEncoder(num_layers, norm=norm, compute_dtype=compute_dtype)
         self.decoder = GoogleDepthDecoder(self.encoder.num_ch_enc, learn_scale=learn_scale,

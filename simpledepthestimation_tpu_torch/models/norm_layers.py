@@ -8,7 +8,11 @@ compute-dtype policy of the port:
 - ``Conv2d``: an ``nn.Conv2d`` whose parameters stay float32 and whose
   convolution runs in ``compute_dtype`` by **explicit casts** of input, weight
   and bias (not autocast), so that nothing outside the convolutions changes
-  dtype behind the caller's back. Output is ``compute_dtype``.
+  dtype behind the caller's back. Output is ``compute_dtype``. Below float32
+  the bias is added to the rounded convolution, in ``compute_dtype``, as
+  ``flax.linen.Conv`` adds it (and as cuDNN's path does); a bias folded into
+  the convolution would round once where the JAX package rounds twice. In
+  float32 the bias stays folded in (a last-bit difference only).
 - ``BatchNorm2d`` / ``GroupNorm``: compute in float32 whatever they are fed,
   and return float32. ``BatchNorm2d.forward(x, train)`` takes the mode as an
   argument, as the JAX modules do; ``nn.Module.train()`` is not consulted.
@@ -39,8 +43,10 @@ class Conv2d(nn.Conv2d):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         dt = self.compute_dtype
-        bias = None if self.bias is None else self.bias.to(dt)
-        return self._conv_forward(x.to(dt), self.weight.to(dt), bias)
+        if self.bias is None or dt == torch.float32:
+            bias = None if self.bias is None else self.bias.to(dt)
+            return self._conv_forward(x.to(dt), self.weight.to(dt), bias)
+        return self._conv_forward(x.to(dt), self.weight.to(dt), None) + self.bias.to(dt)[:, None, None]
 
 
 class BatchNorm2d(nn.BatchNorm2d):

@@ -29,6 +29,7 @@ import torch
 import torch.nn as nn
 
 from ..models.build import build_model
+from ..models.pretrained import maybe_load_pretrained_encoder
 from ..solver.build import ScheduledLR, build_optimizer
 
 
@@ -36,13 +37,16 @@ from ..solver.build import ScheduledLR, build_optimizer
 class TrainState:
     """What a training run carries from step to step. ``step`` counts the
     updates applied; parameters, running statistics and optimizer moments live
-    in ``model`` and ``optimizer`` and are updated in place."""
+    in ``model`` and ``optimizer`` and are updated in place.
+    ``pretrained_weights`` is the ImageNet weight file found for the encoder
+    (``None``: none in reach, or none asked for)."""
 
     model: nn.Module
     optimizer: torch.optim.Optimizer
     scheduler: ScheduledLR
     noise_generator: torch.Generator
     step: int = 0
+    pretrained_weights: Optional[str] = None
 
 
 def create_train_state(
@@ -55,12 +59,21 @@ def create_train_state(
     :func:`..models.build.build_model`), its optimizer, its schedule and the
     generator of its training noise: a ``torch.Generator`` on the model's
     device seeded with ``cfg.SEED`` (0 where that is negative). ``generator``
-    is the CPU generator of the weight initialisation."""
+    is the CPU generator of the weight initialisation.
+
+    An encoder name with the ``pt`` suffix (``"18pt"``) gets its ImageNet
+    weights here, between the model and its optimizer, from a local file
+    (:func:`..models.pretrained.maybe_load_pretrained_encoder`; without one it
+    keeps the seeded weights and warns). The JAX package does this in
+    ``engine.runtime.do_train`` right after making the state; the call moves
+    there when the port has its own ``do_train``."""
     model = build_model(cfg, device=device, generator=generator)
+    weights = maybe_load_pretrained_encoder(cfg, model)
     optimizer, scheduler = build_optimizer(cfg, model, steps_per_epoch)
     model_device = next(model.parameters()).device
     noise = torch.Generator(device=model_device).manual_seed(max(int(cfg.get("SEED", 0)), 0))
-    return TrainState(model=model, optimizer=optimizer, scheduler=scheduler, noise_generator=noise, step=0)
+    return TrainState(model=model, optimizer=optimizer, scheduler=scheduler, noise_generator=noise, step=0,
+                      pretrained_weights=weights)
 
 
 def make_train_step(

@@ -127,6 +127,58 @@ def test_warp_backward_kernel_matches_plain(shape, out_hw, dtype, card, rng):
     assert (xg.grad - want).abs().max().item() <= 1e-5 * max(want.abs().max().item(), 1e-30)
 
 
+# K3 on its 8x32 output tiles: planes whose height is not a multiple of 8 and width not
+# one of 32 (ragged tiles), output planes of another size than the image, every channel
+# count from 1 to 5 (3 and 4 have loops of their own, the others the generic one), corners
+# on the exact edges, float32 and bfloat16; an expanded (stride-0) cotangent; two launches
+# bit-equal (one writer per output, no atomics)
+@pytest.mark.parametrize("C", [1, 2, 3, 4, 5])
+@pytest.mark.parametrize("in_hw,out_hw", [((37, 83), (37, 83)), ((37, 83), (21, 45)), ((44, 300), (52, 300)),
+                                          ((16, 64), (9, 33))])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_warp_backward_kernel_tiles(C, in_hw, out_hw, dtype, card, rng):
+    (H, W), (h, w) = in_hw, out_hw
+    B = 3
+    img = _rand(rng, B, C, H, W).to(card).to(dtype)
+    x = (_rand(rng, B, h, w) * (W * 1.5) - W * 0.25).to(card)
+    y = (_rand(rng, B, h, w) * (H * 1.5) - H * 0.25).to(card)
+    x[0, :3], y[1, :, :3] = W - 1.0, H - 1.0
+    for ct in ((_rand(rng, B, C, h, w) - 0.5).to(card).to(dtype),
+               (_rand(rng, B, C, 1, 1) - 0.5).to(card).to(dtype).expand(B, C, h, w)):
+        before = warp_bilinear.bwd_launches
+        dx, dy = warp_coord_grad(img, x, y, ct)
+        again = warp_coord_grad(img, x, y, ct)
+        torch.cuda.synchronize()
+        assert warp_bilinear.bwd_launches == before + 2
+        assert torch.equal(dx, again[0]) and torch.equal(dy, again[1])
+        assert dx.shape == (B, h, w) and dx.dtype == torch.float32
+        rx, ry = warp_coord_grad_plain(img, x, y, ct)
+        scale = max(rx.abs().max().item(), ry.abs().max().item())
+        assert scale > 0
+        assert (dx - rx).abs().max().item() <= 1e-5 * scale and (dy - ry).abs().max().item() <= 1e-5 * scale
+
+
+def test_warp_backward_kernel_non_finite_and_outside_coordinates(card, rng):
+    """K3 at NaN and infinite coordinates and at pixels whose four corners all
+    lie outside the image, with finite and non-finite cotangents there: NaN
+    where the plain version gives NaN, its values elsewhere (0 outside)."""
+    B, C, H, W = 2, 3, 21, 46
+    img = _rand(rng, B, C, H, W).to(card)
+    ct = (_rand(rng, B, C, H, W) - 0.5).to(card)
+    x, y = (_rand(rng, B, H, W) * W).to(card), (_rand(rng, B, H, W) * H).to(card)
+    x[0, 0, :5], y[0, 1, :5], x[1, 2, :5] = float("nan"), float("inf"), float("-inf")
+    x[1, 3, :10], y[1, 4, :10] = 1e30, -3.5  # finite and wholly outside
+    ct[1, 0, 3, 5:10], ct[1, 2, 4, 5:10] = float("inf"), float("nan")  # non-finite there
+    dx, dy = warp_coord_grad(img, x, y, ct)
+    torch.cuda.synchronize()
+    rx, ry = warp_coord_grad_plain(img, x, y, ct)
+    for got, want in ((dx, rx), (dy, ry)):
+        assert torch.equal(torch.isnan(got), torch.isnan(want)) and torch.isnan(want[1, 3:5, 5:10]).all()
+        ok = ~torch.isnan(want)
+        assert (got[ok] - want[ok]).abs().max().item() <= 1e-5 * want[ok].abs().max().item()
+        assert (got[1, 3, :5] == 0).all() and (got[1, 4, :5] == 0).all()
+
+
 @pytest.mark.parametrize("shape", [(2, 3, 37, 83), (1, 2, 2, 2), (1, 1, 2, 5), (2, 3, 3, 3), (2, 3, 192, 640),
                                    (1, 3, 3, 2), (1, 1, 2, 3), (2, 3, 33, 63)])
 @pytest.mark.parametrize("both", [(True, False), (True, True), (False, True)], ids=["g_a", "g_a-g_b", "g_b"])

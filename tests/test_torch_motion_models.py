@@ -168,11 +168,6 @@ def test_google_resnet_forward_matches_jax(norm, num_layers):
         assert not torch.allclose(noisy[0], net(nchw(image), train=True, noise_stddev=0.0)[0])
 
 
-def test_google_resnet_pretrained_raises():
-    with pytest.raises(NotImplementedError, match="pretrained"):
-        GoogleResNet(18, pretrained=True)
-
-
 @pytest.mark.parametrize("constraint,group_norm", [("clip", False), ("clip_ste", False), ("softplus", False),
                                                    ("clip_ste", True)])
 def test_google_motion_net_matches_jax(constraint, group_norm, rng):

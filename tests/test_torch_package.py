@@ -87,15 +87,6 @@ def test_build_model_needs_cuda_unless_cpu_is_named():
     assert next(model.parameters()).device.type == "cpu"
 
 
-def test_pretrained_encoder_raises_clear_error():
-    from torch_port_helpers import monodepth2_cfgs
-    from simpledepthestimation_tpu_torch.models import build_model
-
-    _, cfg = monodepth2_cfgs(["MODEL.DEPTH_NET.ENCODER_NAME", "18pt"])
-    with pytest.raises(NotImplementedError, match="pretrained"):
-        build_model(cfg, device="cpu")
-
-
 def test_seeded_init_is_reproducible():
     from torch_port_helpers import monodepth2_cfgs
     from simpledepthestimation_tpu_torch.models import build_model
