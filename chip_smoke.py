@@ -10,8 +10,9 @@ source (nvcc, sm_90a), holds each against its plain PyTorch version on the
 card, drives the port's main paths with bfloat16 convolutions (MonoDepth2-R18
 at B=16, 192x640, N=2: depth prediction, the validation-loss pass and the train
 step; MotionLearning-R18 at B=16, 128x416: the train step with the noise ramp
-and the motion burn-in at their ends) and compares forward, gradients and one
-update of each model with a CPU copy at a small shape. Every phase
+and the motion burn-in at their ends; both again through their training entry
+points, loader, checkpoints and evaluation included) and compares forward,
+gradients and one update of each model with a CPU copy at a small shape. Every phase
 prints one JSON line; a failed phase raises, so the exit code is non-zero and
 the closing line is not printed. Without a CUDA device it exits non-zero at
 once: nothing here falls back to the CPU.
@@ -23,7 +24,11 @@ reach, the encoder keeps its seeded weights, and the port's warning about it
 goes to standard error).
 
 Phases: device, build, kernels, main_path, train_path, motion_train_path,
-cpu_agreement (float32, then ``cpu_agreement_bf16``: the loss pass and depth in
+cli_train_path and motion_cli_train_path (the training entry points
+``projects/{MonoDepth2,MotionLearning}/train_torch.py`` run in this process at
+B=16 on synthetic data: two epochs with checkpoints and evaluations,
+``--resume`` to a third, ``--eval``; their training log goes to standard
+error), cpu_agreement (float32, then ``cpu_agreement_bf16``: the loss pass and depth in
 bfloat16 against the CPU copy), cpu_agreement_train_step, cpu_agreement_motion_train_step (and,
 with ``--profile``, a torch.profiler breakdown of the forward calls and of both
 train steps by kernel). Then one line ``{"kernels": [...]}`` with one entry per kernel
@@ -1089,6 +1094,169 @@ def phase_motion_train_path(device):
     return launches
 
 
+CLI_EPOCHS, CLI_TRAIN_LENGTH, CLI_TEST_LENGTH = 2, 96, 8  # 6 steps an epoch at B=16
+CLI_EVAL_KEYS = ("abs_rel", "sq_rel", "rms", "log_rms", "d1", "d2", "d3")
+
+
+def _cli(project: str, argv):
+    """``simple_main`` of ``projects/<project>/train_torch.py`` in this process,
+    as its command line would run it with ``argv``; returns what it returns.
+    The port's console log goes to standard error (its handler is made here)."""
+    import contextlib
+    import importlib.util
+
+    from simpledepthestimation_tpu_torch.engine import default_argument_parser, simple_main
+
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "projects", project, "train_torch.py")
+    spec = importlib.util.spec_from_file_location(f"train_torch_{project}", path)
+    entry = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(entry)
+    with contextlib.redirect_stdout(sys.stderr):
+        return simple_main(default_argument_parser().parse_args([str(a) for a in argv]), entry.train, entry.test)
+
+
+def _metric_rows(run_dir):
+    with open(os.path.join(run_dir, "metrics.json")) as f:
+        return [json.loads(line) for line in f]
+
+
+def _median(values):
+    values = sorted(values)
+    return values[len(values) // 2] if values else None
+
+
+def _check_cli_rows(rows, iterations, n_eval, label):
+    """Step rows for exactly ``iterations``, every loss finite; ``n_eval`` rows
+    with the 7 KITTI metrics, finite. Returns the eval rows."""
+    import math
+
+    steps = [r for r in rows if "total_loss" in r]
+    if [r["iteration"] for r in steps] != list(iterations):
+        raise AssertionError(f"{label}: step rows for iterations {[r['iteration'] for r in steps]}, "
+                             f"expected {list(iterations)}")
+    bad = [r for r in steps if not all(math.isfinite(v) for k, v in r.items() if "loss" in k)]
+    if bad:
+        raise AssertionError(f"{label}: a logged loss is not finite: {bad[0]}")
+    evals = [r for r in rows if "kitti evaluator/abs_rel" in r]
+    if len(evals) != n_eval or not all(
+            math.isfinite(r[f"kitti evaluator/{k}"]) for r in evals for k in CLI_EVAL_KEYS):
+        raise AssertionError(f"{label}: expected {n_eval} evaluation rows with 7 finite metrics, got {evals}")
+    return evals
+
+
+def _loader_alone_s(argv) -> float:
+    """Seconds a batch of the train loader that ``argv`` configures takes with
+    nothing else running (one epoch, page-locked as in training)."""
+    from simpledepthestimation_tpu_torch.data import build_train_loader
+    from simpledepthestimation_tpu_torch.engine import assemble_cfg, default_argument_parser
+
+    cfg = assemble_cfg(default_argument_parser().parse_args([str(a) for a in argv]))
+    loader = build_train_loader(cfg, seed=cfg.SEED, pin_memory=True)
+    t0 = time.perf_counter()
+    n = sum(1 for _ in loader)
+    return (time.perf_counter() - t0) / n
+
+
+def _cli_train_path(phase, project, model_name, hw, per_step, absent):
+    """Train, resume and evaluate through ``projects/<project>/train_torch.py`` at
+    B=16 on the synthetic dataset, bf16 as shipped, encoder ``18pt``: two epochs
+    of 6 steps with a checkpoint and an evaluation after each, then ``--resume``
+    to a third epoch, then ``--eval``. Checked: finite losses in every
+    ``metrics.json`` row, the checkpoints, the evaluation rows, that the resumed
+    run trained the third epoch only, that ``--eval`` gives the last evaluation
+    row exactly, and the launches of the path's kernels (``per_step``: name ->
+    exact count a step, or None for at least one; ``absent``: never)."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    h, w = hw
+    root = os.path.dirname(os.path.abspath(__file__))
+    out = tempfile.mkdtemp(prefix="sde_cli_")
+    try:
+        argv = ["--cfg", os.path.join(root, "projects", project, "configs", "synthetic_quick.yaml"),
+                "MODEL.DEPTH_NET.ENCODER_NAME", "18pt", "SOLVER.IMS_PER_BATCH", SMOKE_B,
+                "DATASETS.TRAIN.IMG_HEIGHT", h, "DATASETS.TRAIN.IMG_WIDTH", w,
+                "DATASETS.TEST.IMG_HEIGHT", h, "DATASETS.TEST.IMG_WIDTH", w,
+                "DATASETS.TRAIN.LENGTH", CLI_TRAIN_LENGTH, "DATASETS.TEST.LENGTH", CLI_TEST_LENGTH,
+                "SOLVER.MAX_EPOCHS", CLI_EPOCHS, "SOLVER.CHECKPOINT_PERIOD", 1, "TEST.EVAL_PERIOD", 1,
+                "OUTPUT_DIR", out]
+        run_dir = os.path.join(out, f"{project}_synthetic_quick")
+        steps_per_epoch = CLI_TRAIN_LENGTH // SMOKE_B
+        loader_s = _loader_alone_s(argv)
+
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        state = _cli(project, argv)
+        train_s = time.perf_counter() - t0
+        if next(state.model.parameters()).device.type != "cuda":
+            raise AssertionError(f"{phase}: the model did not train on the card")
+        del state
+        rows = _metric_rows(run_dir)
+        first_steps = [r for r in rows if "total_loss" in r]
+        evals = _check_cli_rows(rows, range(CLI_EPOCHS * steps_per_epoch), CLI_EPOCHS, phase)
+        ckpts = sorted(f for f in os.listdir(run_dir) if f.startswith("model_"))
+        if ckpts != [f"model_{e:04d}.pth" for e in range(CLI_EPOCHS)]:
+            raise AssertionError(f"{phase}: checkpoints {ckpts}")
+
+        t0 = time.perf_counter()
+        _cli(project, ["--resume"] + argv + ["SOLVER.MAX_EPOCHS", CLI_EPOCHS + 1])
+        resume_s = time.perf_counter() - t0
+        launches = read_launch_counts()
+        more = _metric_rows(run_dir)[len(rows):]
+        resumed = _check_cli_rows(more, range(CLI_EPOCHS * steps_per_epoch, (CLI_EPOCHS + 1) * steps_per_epoch),
+                                  1, f"{phase} --resume")
+        if not os.path.isfile(os.path.join(run_dir, f"model_{CLI_EPOCHS:04d}.pth")):
+            raise AssertionError(f"{phase}: --resume saved no checkpoint of epoch {CLI_EPOCHS}")
+
+        t0 = time.perf_counter()
+        results = _cli(project, ["--eval"] + argv)
+        eval_s = time.perf_counter() - t0
+        got = {k: results["kitti evaluator"][k] for k in CLI_EVAL_KEYS}
+        want = {k: resumed[-1][f"kitti evaluator/{k}"] for k in CLI_EVAL_KEYS}
+        if got != want:
+            raise AssertionError(f"{phase}: --eval gave {got}, the last evaluation row of training {want}")
+
+        n_steps = (CLI_EPOCHS + 1) * steps_per_epoch
+        for name, n in per_step.items():
+            if (launches[name] < 1) if n is None else (launches[name] != n * n_steps):
+                raise AssertionError(f"{phase}: {name} launched {launches[name]} times in {n_steps} steps, "
+                                     f"expected {'at least 1' if n is None else n * n_steps}")
+        if any(launches[name] for name in absent):
+            raise AssertionError(f"{phase}: a kernel the path does not run was launched: {launches}")
+        torch.cuda.empty_cache()
+        emit({
+            "phase": phase, "model": model_name, "entry_point": f"projects/{project}/train_torch.py",
+            "batch": SMOKE_B, "hw": [h, w], "train_samples": CLI_TRAIN_LENGTH, "test_samples": CLI_TEST_LENGTH,
+            "epochs": CLI_EPOCHS, "steps": n_steps, "launches": launches, "checkpoints": ckpts,
+            "median_step_wall_s": _median([r["time"] for r in first_steps]),
+            "median_data_time_s": _median([r["data_time"] for r in first_steps]),
+            "median_h2d_copy_s": _median([r["h2d_time"] for r in first_steps if "h2d_time" in r]),
+            "loader_alone_batch_s": loader_s,
+            "train_run_s": train_s, "resume_run_s": resume_s, "eval_run_s": eval_s,
+            "eval": {k: evals[-1][f"kitti evaluator/{k}"] for k in CLI_EVAL_KEYS},
+            "eval_after_resume": got,
+        })
+        return launches
+    finally:
+        shutil.rmtree(out, ignore_errors=True)
+
+
+def phase_cli_train_path(device):
+    return _cli_train_path(
+        "cli_train_path", "MonoDepth2", "MonoDepth2-R18", PLANES[0],
+        {"warp_bilinear_fwd": 4, "photometric_map_fwd": 8, "warp_bilinear_bwd_coords": 4, "photometric_map_bwd": 4},
+        absent=("warp_bilinear_bwd_image",))
+
+
+def phase_motion_cli_train_path(device):
+    return _cli_train_path(
+        "motion_cli_train_path", "MotionLearning", "MotionLearning-R18 (GoogleResNet-18 randLN + GoogleMotionNet)",
+        MOTION_HW, {"warp_bilinear_fwd": None, "warp_bilinear_bwd_coords": None, "warp_bilinear_bwd_image": None},
+        absent=("photometric_map_fwd", "photometric_map_bwd"))
+
+
 def _agree_train_step(phase, cfg, batch_cpu, device, grad_clip=0.0, schedule_fn=None):
     """One float32 train step on the card (kernels, cuDNN without TF32) and on a
     CPU copy of the same weights (plain versions): every loss, the global
@@ -1300,7 +1468,9 @@ def main() -> int:
         emit({"phase": "done", "kernels_only": True, "seconds": time.perf_counter() - t_start})
         return 0
     by_path = {"main_path": phase_main_path(device), "train_path": phase_train_path(device),
-               "motion_train_path": phase_motion_train_path(device)}
+               "motion_train_path": phase_motion_train_path(device),
+               "cli_train_path": phase_cli_train_path(device),
+               "motion_cli_train_path": phase_motion_cli_train_path(device)}
     phase_cpu_agreement(device)
     phase_cpu_agreement_motion(device)
     if "--profile" in sys.argv[1:]:
@@ -1311,15 +1481,15 @@ def main() -> int:
     kernels = []
     for key, name, source, replaces, paths in (
         ("warp", "warp_bilinear_fwd", csrc + "warp.cu", pallas + "pallas_warp.py:755",
-         ("main_path", "train_path", "motion_train_path")),
+         ("main_path", "train_path", "motion_train_path", "cli_train_path", "motion_cli_train_path")),
         ("photo", "photometric_map_fwd", csrc + "photometric.cu", pallas + "pallas_photometric.py:243",
-         ("main_path", "train_path")),
+         ("main_path", "train_path", "cli_train_path")),
         ("warp_bwd", "warp_bilinear_bwd_coords", csrc + "warp.cu", pallas + "pallas_warp.py:802",
-         ("train_path", "motion_train_path")),
+         ("train_path", "motion_train_path", "cli_train_path", "motion_cli_train_path")),
         ("photo_bwd", "photometric_map_bwd", csrc + "photometric.cu", pallas + "pallas_photometric.py:171",
-         ("train_path",)),
+         ("train_path", "cli_train_path")),
         ("warp_bwd_image", "warp_bilinear_bwd_image", csrc + "warp.cu", pallas + "pallas_warp.py:1119",
-         ("motion_train_path",)),
+         ("motion_train_path", "motion_cli_train_path")),
     ):
         counts = {path: by_path[path][name] for path in paths}
         if min(counts.values()) < 1:

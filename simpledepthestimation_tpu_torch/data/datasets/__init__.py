@@ -1,0 +1,2 @@
+from . import kitti  # noqa: F401  (registers KittiDepthV2)
+from . import synthetic  # noqa: F401  (registers SyntheticDepth)

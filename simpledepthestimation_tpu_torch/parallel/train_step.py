@@ -28,7 +28,7 @@ from typing import Callable, Dict, Optional, Union
 import torch
 import torch.nn as nn
 
-from ..models.build import build_model
+from ..models.build import build_model, resolve_device
 from ..models.pretrained import maybe_load_pretrained_encoder
 from ..solver.build import ScheduledLR, build_optimizer
 
@@ -54,20 +54,27 @@ def create_train_state(
     device: Optional[Union[str, torch.device]] = None,
     generator: Optional[torch.Generator] = None,
     steps_per_epoch: int = 1,
+    model: Optional[nn.Module] = None,
 ) -> TrainState:
     """Build the model (on the CUDA device unless another is named; see
     :func:`..models.build.build_model`), its optimizer, its schedule and the
     generator of its training noise: a ``torch.Generator`` on the model's
     device seeded with ``cfg.SEED`` (0 where that is negative). ``generator``
-    is the CPU generator of the weight initialisation.
+    is the CPU generator of the weight initialisation. A ``model`` built by
+    the caller (e.g. with weights loaded) is moved to the device and used
+    instead.
 
     An encoder name with the ``pt`` suffix (``"18pt"``) gets its ImageNet
     weights here, between the model and its optimizer, from a local file
     (:func:`..models.pretrained.maybe_load_pretrained_encoder`; without one it
     keeps the seeded weights and warns). The JAX package does this in
-    ``engine.runtime.do_train`` right after making the state; the call moves
-    there when the port has its own ``do_train``."""
-    model = build_model(cfg, device=device, generator=generator)
+    ``engine.runtime.do_train`` right after making the state; the port's
+    ``engine.runtime.do_train`` gets it by making its state here, before it
+    resumes or loads ``MODEL.WEIGHTS``, the same order."""
+    if model is None:
+        model = build_model(cfg, device=device, generator=generator)
+    else:
+        model = model.to(resolve_device(device))
     weights = maybe_load_pretrained_encoder(cfg, model)
     optimizer, scheduler = build_optimizer(cfg, model, steps_per_epoch)
     model_device = next(model.parameters()).device

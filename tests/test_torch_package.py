@@ -3,6 +3,7 @@ refuses to build on a missing CUDA device, and its GPU smoke script fails
 where there is no GPU."""
 
 import glob
+import json
 import os
 import pkgutil
 import subprocess
@@ -24,36 +25,75 @@ def _module_names():
     )
 
 
-def test_every_module_imports_without_jax():
+ENTRY_POINTS = sorted(glob.glob(os.path.join(REPO, "projects", "*", "train_torch.py")))
+
+
+@pytest.fixture(scope="module")
+def loaded_modules():
+    """Every module of the port and the ``train_torch.py`` entry points, imported
+    in a fresh interpreter: the top-level names of everything that came with them."""
     names = _module_names()
-    assert len(names) >= 24
-    assert {"simpledepthestimation_tpu_torch.solver.build",
-            "simpledepthestimation_tpu_torch.parallel.train_step"} <= set(names)
     code = (
-        "import importlib, sys\n"
+        "import importlib, importlib.util, json, sys\n"
         f"names = {names!r}\n"
         "for n in names:\n"
         "    importlib.import_module(n)\n"
-        "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
-        "('jax', 'jaxlib', 'flax', 'optax', 'orbax', 'simpledepthestimation_tpu'))\n"
-        "print('BAD', bad)\n"
-        "sys.exit(1 if bad else 0)\n"
+        f"for i, path in enumerate({ENTRY_POINTS!r}):\n"
+        "    spec = importlib.util.spec_from_file_location(f'entry_{i}', path)\n"
+        "    spec.loader.exec_module(importlib.util.module_from_spec(spec))\n"
+        "print(json.dumps(sorted({m.split('.')[0] for m in sys.modules})))\n"
     )
     res = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True, timeout=300)
     assert res.returncode == 0, res.stdout + res.stderr
+    return names, set(json.loads(res.stdout.strip().splitlines()[-1]))
+
+
+def _sources():
+    files = glob.glob(os.path.join(REPO, "simpledepthestimation_tpu_torch", "**", "*.py"), recursive=True)
+    return files + [os.path.join(REPO, "chip_smoke.py")] + ENTRY_POINTS
+
+
+def _assert_no_import(pattern):
+    import re
+
+    pat = re.compile(r"^\s*(from|import)\s+(" + pattern + r")\b", re.M)
+    for path in _sources():
+        with open(path) as f:
+            assert not pat.search(f.read()), path
+
+
+def test_every_module_imports_without_jax(loaded_modules):
+    names, loaded = loaded_modules
+    assert len(names) >= 40
+    assert {"simpledepthestimation_tpu_torch.solver.build",
+            "simpledepthestimation_tpu_torch.parallel.train_step",
+            "simpledepthestimation_tpu_torch.data.preprocess.augmentation",
+            "simpledepthestimation_tpu_torch.evaluation.depth_evaluation",
+            "simpledepthestimation_tpu_torch.engine.runtime",
+            "simpledepthestimation_tpu_torch.utils.events"} <= set(names)
+    assert len(ENTRY_POINTS) == 2
+    bad = loaded & {"jax", "jaxlib", "flax", "optax", "orbax"}
+    assert not bad, bad
 
 
 def test_sources_do_not_name_jax():
-    """Static twin of the subprocess test: no import statement of the port or
-    of chip_smoke.py names JAX or the JAX package."""
-    import re
+    """Static twin of the subprocess test: no import statement of the port, of
+    chip_smoke.py or of the ``train_torch.py`` entry points names JAX or the JAX package."""
+    _assert_no_import("jax|flax|optax|orbax|simpledepthestimation_tpu")
 
-    files = glob.glob(os.path.join(REPO, "simpledepthestimation_tpu_torch", "**", "*.py"), recursive=True)
-    files.append(os.path.join(REPO, "chip_smoke.py"))
-    pat = re.compile(r"^\s*(from|import)\s+(jax|flax|optax|orbax|simpledepthestimation_tpu)\b", re.M)
-    for path in files:
-        with open(path) as f:
-            assert not pat.search(f.read()), path
+
+def test_nothing_imports_the_jax_package(loaded_modules):
+    _, loaded = loaded_modules
+    assert "simpledepthestimation_tpu" not in loaded
+    _assert_no_import("simpledepthestimation_tpu")
+
+
+def test_nothing_imports_opencv(loaded_modules):
+    """The data and evaluation code reads and writes PNG files and resizes
+    frames without OpenCV, which the GPU machine need not have."""
+    _, loaded = loaded_modules
+    assert "cv2" not in loaded
+    _assert_no_import("cv2")
 
 
 @pytest.mark.parametrize("path", CONFIGS, ids=lambda p: "/".join(p.split("/")[-3:]))
