@@ -11,8 +11,11 @@ card, drives the port's main paths with bfloat16 convolutions (MonoDepth2-R18
 at B=16, 192x640, N=2: depth prediction, the validation-loss pass and the train
 step; MotionLearning-R18 at B=16, 128x416: the train step with the noise ramp
 and the motion burn-in at their ends; both again through their training entry
-points, loader, checkpoints and evaluation included) and compares forward,
-gradients and one update of each model with a CPU copy at a small shape. Every phase
+points, loader, checkpoints and evaluation included; the Supervised family at
+B=16, 352x704: DepthResNet-18 and BTS-R50 train steps, BTS with its frozen
+parameters and with ``TPU.REMAT`` off and on, and BTS through its entry point)
+and compares forward, gradients and one update of each model with a CPU copy at
+a small shape. Every phase
 prints one JSON line; a failed phase raises, so the exit code is non-zero and
 the closing line is not printed. Without a CUDA device it exits non-zero at
 once: nothing here falls back to the CPU.
@@ -28,8 +31,12 @@ cli_train_path and motion_cli_train_path (the training entry points
 ``projects/{MonoDepth2,MotionLearning}/train_torch.py`` run in this process at
 B=16 on synthetic data: two epochs with checkpoints and evaluations,
 ``--resume`` to a third, ``--eval``; their training log goes to standard
-error), cpu_agreement (float32, then ``cpu_agreement_bf16``: the loss pass and depth in
-bfloat16 against the CPU copy), cpu_agreement_train_step, cpu_agreement_motion_train_step (and,
+error), supervised_train_path and bts_train_path (``projects/Supervised/configs/
+{resnet18,bts_r50}.yaml`` as shipped; neither launches K1–K5, checked),
+supervised_cli_train_path (``projects/Supervised/train_torch.py`` as the two
+above, with ``bts_r50.yaml``'s model), cpu_agreement (float32, then ``cpu_agreement_bf16``: the loss pass and depth in
+bfloat16 against the CPU copy), cpu_agreement_train_step, cpu_agreement_motion_train_step,
+cpu_agreement_bts (and,
 with ``--profile``, a torch.profiler breakdown of the forward calls and of both
 train steps by kernel). Then one line ``{"kernels": [...]}`` with one entry per kernel
 at the main path's largest shape, the card's name and power limit as nvidia-smi
@@ -117,9 +124,11 @@ def emit_warm_start(model: str, cfg, state) -> None:
     """One line per model: its encoder name and the weight file its warm start
     found (``None``: the encoder keeps its seeded weights; the port's logger
     says so on standard error at each state made)."""
+    from simpledepthestimation_tpu_torch.models.pretrained import BTS_CONVERTIBLE
+
     name = str(cfg.MODEL.DEPTH_NET.ENCODER_NAME)
     emit({"phase": "warm_start", "model": model, "encoder_name": name, "weights_file": state.pretrained_weights})
-    if not name.endswith("pt"):
+    if not (name.endswith("pt") or name in BTS_CONVERTIBLE):
         raise AssertionError(f"the shipped config names no ImageNet-pretrained encoder: {name}")
 
 
@@ -1157,11 +1166,13 @@ def _loader_alone_s(argv) -> float:
     return (time.perf_counter() - t0) / n
 
 
-def _cli_train_path(phase, project, model_name, hw, per_step, absent):
+def _cli_train_path(phase, project, model_name, hw, per_step, absent,
+                    model_overrides=("MODEL.DEPTH_NET.ENCODER_NAME", "18pt")):
     """Train, resume and evaluate through ``projects/<project>/train_torch.py`` at
-    B=16 on the synthetic dataset, bf16 as shipped, encoder ``18pt``: two epochs
+    B=16 on the synthetic dataset, bf16 as shipped: two epochs
     of 6 steps with a checkpoint and an evaluation after each, then ``--resume``
-    to a third epoch, then ``--eval``. Checked: finite losses in every
+    to a third epoch, then ``--eval``. ``model_overrides`` turn the yaml's model
+    into the shipped one (and may set ``LOG_PERIOD`` 1: a row for every step). Checked: finite losses in every
     ``metrics.json`` row, the checkpoints, the evaluation rows, that the resumed
     run trained the third epoch only, that ``--eval`` gives the last evaluation
     row exactly, and the launches of the path's kernels (``per_step``: name ->
@@ -1176,7 +1187,7 @@ def _cli_train_path(phase, project, model_name, hw, per_step, absent):
     out = tempfile.mkdtemp(prefix="sde_cli_")
     try:
         argv = ["--cfg", os.path.join(root, "projects", project, "configs", "synthetic_quick.yaml"),
-                "MODEL.DEPTH_NET.ENCODER_NAME", "18pt", "SOLVER.IMS_PER_BATCH", SMOKE_B,
+                *model_overrides, "SOLVER.IMS_PER_BATCH", SMOKE_B,
                 "DATASETS.TRAIN.IMG_HEIGHT", h, "DATASETS.TRAIN.IMG_WIDTH", w,
                 "DATASETS.TEST.IMG_HEIGHT", h, "DATASETS.TEST.IMG_WIDTH", w,
                 "DATASETS.TRAIN.LENGTH", CLI_TRAIN_LENGTH, "DATASETS.TEST.LENGTH", CLI_TEST_LENGTH,
@@ -1256,6 +1267,304 @@ def phase_motion_cli_train_path(device):
         MOTION_HW, {"warp_bilinear_fwd": None, "warp_bilinear_bwd_coords": None, "warp_bilinear_bwd_image": None},
         absent=("photometric_map_fwd", "photometric_map_bwd"))
 
+
+# --- the Supervised family (no hand-written kernel on its path) ---
+
+SUP_HW = (352, 704)  # projects/Supervised/configs/Base.yaml: RandomCrop IMG_H, IMG_W
+SUP_FIXED_STEPS, SUP_FRESH_STEPS = 4, 2
+KERNEL_NAMES = ("warp_bilinear_fwd", "photometric_map_fwd", "warp_bilinear_bwd_coords", "photometric_map_bwd",
+                "warp_bilinear_bwd_image")
+NO_KERNEL = {k: (0, 0) for k in KERNEL_NAMES}
+# REMAT off and on from one state, bf16 on the card: the forward runs the same cuDNN algorithms on the
+# same inputs twice, so the loss and the running statistics (which the recomputation must leave alone:
+# a second update would move them by a momentum step, 1e-2 of their size) agree to the bit; the
+# backward's algorithms add in another order, so grad_norm is held to 1e-3 (measured on NVIDIA H100
+# 80GB HBM3, 700 W: loss and statistics 0, grad_norm 2.4e-4)
+REMAT_LOSS_RTOL, REMAT_STATS_RTOL, REMAT_GRAD_NORM_RTOL = 0.0, 0.0, 1e-3
+# cpu_agreement_bts, float32 (measured on the card, NVIDIA H100 80GB HBM3, 700 W, in brackets):
+# the forward and the losses as the other agreements (AGREE_RTOL) [depth 8.4e-7, losses 2.2e-7].
+# BTS-R50's gradient with train-mode BatchNorms is ill-conditioned in float32 (the port's and the
+# JAX package's each lie up to 17 % per tensor from a float64 gradient; tests/test_torch_bts.py),
+# so it is held globally, at about 3x the reading: grad_norm 5e-3 [1.4e-3], the flattened gradient's
+# 1 - cosine 1e-3 [3.1e-4], relative L2 8e-2 [2.5e-2], per-tensor median 8e-2 [2.7e-2]; and Adam's
+# first update, which moves every parameter by about the rate whatever its gradient's size, may put
+# a parameter whose gradient is noise up to twice the rate from the CPU's [2.0e-4 = 2 x 1e-4]. With
+# BN_NO_TRACK (no batch statistics) the gradient is well conditioned and held per tensor
+# (GRAD_AGREE_RTOL) and in norm (GRAD_NORM_RTOL)
+BTS_GRAD_NORM_RTOL, BTS_GRAD_ONE_MINUS_COS, BTS_GRAD_REL_L2, BTS_GRAD_MEDIAN = 5e-3, 1e-3, 8e-2, 8e-2
+BTS_AGREE_HW = (128, 256)
+# bfloat16, card vs CPU copy: the loss [7.2e-4], and the share of depth pixels on the same value
+# (within 1e-6) [0.46]: the median pixel cannot be the check after ~70 bf16 convolutions, where
+# rounding flips spread (tests/test_torch_bts.py)
+BTS_BF16_LOSS_RTOL, BTS_BF16_SAME_SHARE = 2e-3, 0.15
+
+
+def sup_cfg(name: str, extra=()):
+    from simpledepthestimation_tpu_torch.config import get_cfg
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    cfg = get_cfg()
+    cfg.merge_from_file(os.path.join(root, "projects", "Supervised", "configs", name))
+    cfg.merge_from_list(list(extra))
+    return cfg
+
+
+def make_sup_batch(seed: int, B: int, H: int, W: int, device):
+    """A Supervised batch from a numpy seed, NCHW: smooth frames, a smooth
+    ground-truth depth in (1.5, 39.5) with a third of its pixels set to one
+    value at or below 1 (outside ``silog_loss``'s ``gt > 1`` mask), intrinsics
+    (the KITTI focal scaling reads them), and a random flip per sample."""
+    import numpy as np
+    import torch
+
+    rng = np.random.RandomState(seed)
+    img = smooth_field(rng, B, H, W)
+    depth = (1.5 + 38.0 * smooth_field(rng, B, H, W)[:, :1]).astype(np.float32)
+    depth[rng.rand(B, 1, H, W) < 1 / 3] = rng.rand()
+    K = np.tile(np.array([[[0.58 * W, 0, W / 2], [0, 1.92 * H, H / 2], [0, 0, 1]]], np.float32), (B, 1, 1))
+    batch = {"img": img, "depth": depth, "intrinsics": K, "flip": rng.rand(B) < 0.5}
+    return {k: torch.from_numpy(np.ascontiguousarray(v)).to(device) for k, v in batch.items()}
+
+
+def _sup_train(phase, cfg, model_name, device, exempt_fn=None):
+    """A few checked steps on one fixed batch (the loss must fall) and on fresh
+    ones, then ``TIMED_STEPS`` back to back, at full width, through the port's
+    entry points. No hand-written kernel may launch. Returns (state, step,
+    records, steady ms, peak bytes, the fixed batch, the exempt names)."""
+    import torch
+
+    from simpledepthestimation_tpu_torch.parallel import create_train_state, make_eval_step, make_train_step
+
+    B, (H, W) = int(cfg.SOLVER.IMS_PER_BATCH), SUP_HW
+    if B != SMOKE_B:
+        raise AssertionError(f"config gives B={B}; expected {SMOKE_B}")
+    torch.cuda.reset_peak_memory_stats()
+    state = create_train_state(cfg, generator=torch.Generator().manual_seed(0), steps_per_epoch=4)
+    emit_warm_start(model_name, cfg, state)
+    if next(state.model.parameters()).device.type != "cuda":
+        raise AssertionError("create_train_state did not place the model on the card")
+    exempt = frozenset(exempt_fn(state) if exempt_fn else ())
+    step = make_train_step(state, grad_clip=float(cfg.SOLVER.get("GRAD_CLIP", 0.0)))
+    fixed = make_sup_batch(500, B, H, W, device)
+    fresh = [make_sup_batch(501 + i, B, H, W, device) for i in range(SUP_FRESH_STEPS)]
+    records, launches, steady_ms = _drive_train_step(
+        state, step, [fixed] * SUP_FIXED_STEPS + fresh, fresh, NO_KERNEL, {"total_loss", "grad_norm", "silog_loss"},
+        exempt=exempt)
+    peak = torch.cuda.max_memory_allocated()
+    first, last = records[0]["total_loss"], records[SUP_FIXED_STEPS - 1]["total_loss"]
+    if not last < first:
+        raise AssertionError(f"{phase}: silog_loss on the fixed batch did not fall: {first} -> {last}")
+    if any(p.dtype != torch.float32 for p in state.model.parameters()):
+        raise AssertionError(f"{phase}: a parameter left float32")
+    depth = make_eval_step(state)(fixed)
+    lo, hi = depth.min().item(), depth.max().item()
+    if depth.shape != (B, 1, H, W) or not (torch.isfinite(depth).all() and lo > 0.0):
+        raise AssertionError(f"{phase}: depth_pred after training is off: shape {tuple(depth.shape)}, min {lo}")
+    return state, step, records, launches, steady_ms, peak, fixed, exempt, (lo, hi)
+
+
+def phase_supervised_train_path(device):
+    """``projects/Supervised/configs/resnet18.yaml`` as shipped: DepthResNet-18pt with
+    ``UPSAMPLE_DEPTH``, ``adamw_poly``, bf16, B=16 at Base.yaml's 352x704 crop."""
+    cfg = sup_cfg("resnet18.yaml")
+    state, _, records, launches, steady_ms, peak, _, _, depth = _sup_train(
+        "supervised_train_path", cfg, "Supervised DepthResNet-18", device)
+    B, (H, W) = SMOKE_B, SUP_HW
+    emit({
+        "phase": "supervised_train_path", "model": "Supervised DepthResNet-18 (UPSAMPLE_DEPTH)", "batch": B,
+        "hw": [H, W], "compute_dtype": str(cfg.TPU.COMPUTE_DTYPE), "optimizer": str(cfg.SOLVER.OPT),
+        "lr": state.scheduler.get_last_lr(), "steps": records, "launches": launches,
+        "steady_step_ms": steady_ms, "steady_images_per_s": B / steady_ms * 1e3, "peak_mem_bytes": peak,
+        "depth_after": list(depth),
+    })
+    return launches
+
+
+def phase_bts_train_path(device):
+    """``projects/Supervised/configs/bts_r50.yaml`` as shipped: BtsModel resnet50_bts,
+    BTS_SIZE 512, DATASET kitti, the freeze rules, bf16, B=16 at 352x704. Then,
+    from one saved state, one step with ``TPU.REMAT`` off and one with it on."""
+    import copy
+
+    import torch
+
+    from simpledepthestimation_tpu_torch.parallel import make_train_step
+    from simpledepthestimation_tpu_torch.solver import frozen_parameter_names
+
+    cfg = sup_cfg("bts_r50.yaml")
+    frozen_of = lambda state: frozen_parameter_names(cfg, state.model)  # noqa: E731
+    before = {}
+
+    def exempt_fn(state):
+        names = frozen_of(state)
+        params = dict(state.model.named_parameters())
+        before.update({k: params[k].detach().clone() for k in names})
+        return names
+
+    state, _, records, launches, steady_ms, peak, fixed, frozen, depth = _sup_train(
+        "bts_train_path", cfg, "BTS-R50", device, exempt_fn=exempt_fn)
+    params = dict(state.model.named_parameters())
+    moved = [k for k in frozen if not torch.equal(params[k].detach(), before[k])]
+    no_grad = [k for k in frozen if params[k].grad is None or not bool((params[k].grad != 0).any())]
+    if len(frozen) != 99 or moved or no_grad:
+        raise AssertionError(f"bts_train_path: {len(frozen)} frozen parameters, {len(moved)} of them moved "
+                             f"(e.g. {moved[:3]}), {len(no_grad)} without a gradient")
+
+    # REMAT off and on from one saved state
+    saved = (copy.deepcopy(state.model.state_dict()), copy.deepcopy(state.optimizer.state_dict()),
+             state.scheduler.state_dict(), state.step)
+    runs = {}
+    for remat in (False, True):
+        state.model.load_state_dict(saved[0])
+        state.optimizer.load_state_dict(saved[1])
+        state.scheduler.load_state_dict(saved[2])
+        state.step = saved[3]
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        metrics = make_train_step(state, grad_clip=0.0, remat=remat)(fixed)
+        stop.record()
+        torch.cuda.synchronize()
+        runs[remat] = ({k: v.item() for k, v in metrics.items()},
+                       {k: v.clone() for k, v in state.model.state_dict().items() if "running" in k},
+                       torch.cuda.max_memory_allocated(), torch.cuda.max_memory_allocated() - base,
+                       start.elapsed_time(stop))
+    (m0, s0, peak0, step0, ms0), (m1, s1, peak1, step1, ms1) = runs[False], runs[True]
+    loss_err = abs(m1["silog_loss"] - m0["silog_loss"]) / abs(m0["silog_loss"])
+    norm_err = abs(m1["grad_norm"] - m0["grad_norm"]) / abs(m0["grad_norm"])
+    stats_err = max(((s1[k] - s0[k]).abs().max() / s0[k].abs().max()).item() for k in s0)
+    stats_moved = max(((s0[k] - saved[0][k]).abs().max() / saved[0][k].abs().max()).item() for k in s0)
+    remat = {"loss_rel_err": loss_err, "grad_norm_rel_err": norm_err, "running_stats_rel_err": stats_err,
+             "running_stats_moved_by_the_step": stats_moved,
+             "limits": [REMAT_LOSS_RTOL, REMAT_GRAD_NORM_RTOL, REMAT_STATS_RTOL],
+             "peak_mem_bytes_off": peak0, "peak_mem_bytes_on": peak1,
+             "step_mem_above_state_bytes_off": step0, "step_mem_above_state_bytes_on": step1,
+             "step_ms_off": ms0, "step_ms_on": ms1,
+             "metrics_off": m0, "metrics_on": m1}
+    B, (H, W) = SMOKE_B, SUP_HW
+    emit({
+        "phase": "bts_train_path", "model": "BTS-R50 (resnet50_bts, BTS_SIZE 512, kitti focal scaling)",
+        "batch": B, "hw": [H, W], "compute_dtype": str(cfg.TPU.COMPUTE_DTYPE), "optimizer": str(cfg.SOLVER.OPT),
+        "frozen_parameters": len(frozen), "steps": records, "launches": launches,
+        "steady_step_ms": steady_ms, "steady_images_per_s": B / steady_ms * 1e3, "peak_mem_bytes": peak,
+        "depth_after": list(depth), "remat": remat,
+    })
+    if loss_err > REMAT_LOSS_RTOL or norm_err > REMAT_GRAD_NORM_RTOL or stats_err > REMAT_STATS_RTOL:
+        raise AssertionError("bts_train_path: one step with TPU.REMAT differs from one without it")
+    if not stats_moved > 0 or not peak1 < peak0:
+        raise AssertionError("bts_train_path: the REMAT step moved no statistic or did not lower the peak memory")
+    return launches
+
+
+def phase_supervised_cli_train_path(device):
+    """``projects/Supervised/train_torch.py`` on ``synthetic_quick.yaml`` turned into
+    ``bts_r50.yaml``'s model (resnet50_bts, BTS_SIZE 512, kitti) at 352x704, B=16, bf16."""
+    return _cli_train_path(
+        "supervised_cli_train_path", "Supervised", "BTS-R50 (resnet50_bts, BTS_SIZE 512)", SUP_HW, {},
+        absent=KERNEL_NAMES,
+        model_overrides=("MODEL.DEPTH_NET.NAME", "BtsModel", "MODEL.DEPTH_NET.ENCODER_NAME", "resnet50_bts",
+                         "MODEL.DEPTH_NET.BTS_SIZE", 512, "MODEL.DATASET", "kitti", "LOG_PERIOD", 1))
+
+
+def _grad_agreement(card, cpu):
+    """Per-tensor ``max|Δ| / max|g|`` of the two models' gradients, the
+    flattened gradients' 1 − cosine and relative L2."""
+    import torch
+
+    g_card = {k: p.grad.cpu().double() for k, p in card.named_parameters()}
+    g_cpu = {k: p.grad.double() for k, p in cpu.named_parameters()}
+    errs = {k: ((g_card[k] - g_cpu[k]).abs().max() / g_cpu[k].abs().max()).item() for k in g_cpu}
+    va = torch.cat([g_card[k].flatten() for k in g_cpu])
+    vb = torch.cat([g_cpu[k].flatten() for k in g_cpu])
+    return errs, 1.0 - (va @ vb / va.norm() / vb.norm()).item(), ((va - vb).norm() / vb.norm()).item()
+
+
+def phase_cpu_agreement_bts(device):
+    """BtsModel-R50 (bts_r50.yaml) on the card and on a CPU copy of the same weights,
+    B=2 at 128x256: in float32 the forward, the train step's loss, gradient and one
+    AdamW update with the freeze, and the gradient with BN_NO_TRACK; in bfloat16
+    the loss pass and the depth."""
+    import torch
+
+    from simpledepthestimation_tpu_torch.models import build_model
+    from simpledepthestimation_tpu_torch.parallel import create_train_state, make_train_step
+    from simpledepthestimation_tpu_torch.solver import frozen_parameter_names
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = sup_cfg("bts_r50.yaml", ["TPU.COMPUTE_DTYPE", "float32"])
+    batch_cpu = make_sup_batch(600, 2, *BTS_AGREE_HW, "cpu")
+    batch_card = {k: v.to(device) for k, v in batch_cpu.items()}
+    d_card, d_cpu, l_card, l_cpu = _forward_both(cfg, batch_cpu, device)
+    depth_err = ((d_card - d_cpu).abs() / d_cpu.abs()).max().item()
+    fwd_loss_err = abs(l_card["silog_loss"] - l_cpu["silog_loss"]) / abs(l_cpu["silog_loss"])
+
+    # one train step: train-mode BatchNorms, the freeze, AdamW
+    card = create_train_state(cfg, generator=torch.Generator().manual_seed(3), steps_per_epoch=4)
+    cpu = create_train_state(cfg, device="cpu", generator=torch.Generator().manual_seed(4), steps_per_epoch=4)
+    cpu.model.load_state_dict(card.model.state_dict())
+    start = {k: p.detach().cpu().clone() for k, p in cpu.model.named_parameters()}
+    reset_launch_counts()
+    m_card = {k: v.item() for k, v in make_train_step(card)(batch_card).items()}
+    launched = read_launch_counts()
+    m_cpu = {k: v.item() for k, v in make_train_step(cpu)(batch_cpu).items()}
+    errs, one_minus_cos, grad_rel_l2 = _grad_agreement(card.model, cpu.model)
+    grad_median = sorted(errs.values())[len(errs) // 2]
+    loss_err = abs(m_card["silog_loss"] - m_cpu["silog_loss"]) / abs(m_cpu["silog_loss"])
+    norm_err = abs(m_card["grad_norm"] - m_cpu["grad_norm"]) / abs(m_cpu["grad_norm"])
+    frozen = set(frozen_parameter_names(cfg, cpu.model))
+    p_card = {k: p.detach().cpu() for k, p in card.model.named_parameters()}
+    p_cpu = {k: p.detach() for k, p in cpu.model.named_parameters()}
+    frozen_moved = [k for k in frozen if not (torch.equal(p_card[k], start[k]) and torch.equal(p_cpu[k], start[k]))]
+    still = [k for k in p_cpu if k not in frozen and (torch.equal(p_card[k], start[k]) or torch.equal(p_cpu[k], start[k]))]
+    lr = float(cfg.SOLVER.DEPTH_LR)
+    max_apart = max((p_card[k] - p_cpu[k]).abs().max().item() for k in p_cpu)
+
+    # BN_NO_TRACK: the same weights, no batch statistics, a well-conditioned gradient
+    cfg_nt = sup_cfg("bts_r50.yaml", ["TPU.COMPUTE_DTYPE", "float32", "MODEL.DEPTH_NET.BN_NO_TRACK", "True"])
+    nt_card = build_model(cfg_nt, generator=torch.Generator().manual_seed(5))
+    nt_cpu = build_model(cfg_nt, device="cpu", generator=torch.Generator().manual_seed(6))
+    nt_cpu.load_state_dict(nt_card.state_dict())
+    nt_card(batch_card, train=True)["silog_loss"].backward()
+    nt_cpu(batch_cpu, train=True)["silog_loss"].backward()
+    nt_errs, nt_one_minus_cos, nt_rel_l2 = _grad_agreement(nt_card, nt_cpu)
+    nt_worst = max(nt_errs, key=nt_errs.get)
+
+    # bfloat16, the shipped dtype: the loss pass and depth
+    d16_card, d16_cpu, l16_card, l16_cpu = _forward_both(sup_cfg("bts_r50.yaml"), batch_cpu, device)
+    rel16 = (d16_card - d16_cpu).abs() / d16_cpu.abs()
+    loss16_err = abs(l16_card["silog_loss"] - l16_cpu["silog_loss"]) / abs(l16_cpu["silog_loss"])
+    same16 = (rel16 <= 1e-6).double().mean().item()
+    emit({"phase": "cpu_agreement_bts", "shape": [2, *BTS_AGREE_HW], "rtol": AGREE_RTOL,
+          "depth_rel_err": depth_err, "forward_loss_rel_err": fwd_loss_err, "step_loss_rel_err": loss_err,
+          "grad_norm_rel_err": norm_err, "grad_one_minus_cos": one_minus_cos, "grad_rel_l2": grad_rel_l2,
+          "grad_median_rel_err": grad_median, "grad_worst": max(errs, key=errs.get),
+          "grad_worst_rel_err": max(errs.values()),
+          "grad_limits": [BTS_GRAD_NORM_RTOL, BTS_GRAD_ONE_MINUS_COS, BTS_GRAD_REL_L2, BTS_GRAD_MEDIAN],
+          "frozen": len(frozen), "frozen_moved": frozen_moved[:5], "trainable_unmoved": still[:5],
+          "update_max_apart": max_apart, "lr": lr,
+          "bn_no_track": {"worst": nt_worst, "worst_rel_err": nt_errs[nt_worst], "rtol": GRAD_AGREE_RTOL,
+                          "one_minus_cos": nt_one_minus_cos, "rel_l2": nt_rel_l2},
+          "launches_on_card": launched,
+          "bf16": {"loss_rel_err": loss16_err, "loss_rtol": BTS_BF16_LOSS_RTOL,
+                   "depth_rel_err_max": rel16.max().item(), "depth_rel_err_mean": rel16.mean().item(),
+                   "depth_rel_err_median": rel16.median().item(), "depth_same_share": same16,
+                   "same_share_min": BTS_BF16_SAME_SHARE}})
+    if depth_err > AGREE_RTOL or fwd_loss_err > AGREE_RTOL or loss_err > AGREE_RTOL:
+        raise AssertionError("cpu_agreement_bts: the card's forward or loss disagrees with the CPU copy")
+    if (norm_err > BTS_GRAD_NORM_RTOL or one_minus_cos > BTS_GRAD_ONE_MINUS_COS or grad_rel_l2 > BTS_GRAD_REL_L2
+            or grad_median > BTS_GRAD_MEDIAN):
+        raise AssertionError("cpu_agreement_bts: the card's train-mode gradient disagrees with the CPU copy")
+    if nt_errs[nt_worst] > GRAD_AGREE_RTOL or nt_rel_l2 > GRAD_NORM_RTOL:
+        raise AssertionError("cpu_agreement_bts: the card's BN_NO_TRACK gradient disagrees with the CPU copy")
+    if len(frozen) != 99 or frozen_moved or still or max_apart > 2.5 * lr:
+        raise AssertionError("cpu_agreement_bts: the AdamW update with the freeze disagrees with the CPU copy")
+    if any(launched.values()):
+        raise AssertionError(f"cpu_agreement_bts: the BTS step launched a hand-written kernel: {launched}")
+    if loss16_err > BTS_BF16_LOSS_RTOL or same16 < BTS_BF16_SAME_SHARE or not torch.isfinite(d16_card).all():
+        raise AssertionError("cpu_agreement_bts: the card's bfloat16 forward disagrees with the CPU copy")
 
 def _agree_train_step(phase, cfg, batch_cpu, device, grad_clip=0.0, schedule_fn=None):
     """One float32 train step on the card (kernels, cuDNN without TF32) and on a
@@ -1471,8 +1780,12 @@ def main() -> int:
                "motion_train_path": phase_motion_train_path(device),
                "cli_train_path": phase_cli_train_path(device),
                "motion_cli_train_path": phase_motion_cli_train_path(device)}
+    # the Supervised family launches none of K1-K5 (each phase checks it)
+    for phase in (phase_supervised_train_path, phase_bts_train_path, phase_supervised_cli_train_path):
+        phase(device)
     phase_cpu_agreement(device)
     phase_cpu_agreement_motion(device)
+    phase_cpu_agreement_bts(device)
     if "--profile" in sys.argv[1:]:
         profile_paths(device)
 

@@ -3,7 +3,7 @@
 Same keys and defaults as ``simpledepthestimation_tpu/config/defaults.py`` so
 the yaml files under ``projects/*/configs/`` load under both packages. The
 ``TPU`` node stays loadable as it is: this package reads only
-``TPU.COMPUTE_DTYPE`` from it (models/build.py); the warp-window and conv3d
+``TPU.COMPUTE_DTYPE`` (models/build.py) and ``TPU.REMAT`` (engine/runtime.py) from it; the warp-window and conv3d
 keys schedule kernels of the JAX package and have no effect here.
 The schema is open: project yamls may add keys (e.g. ``LOSS.*``) freely.
 """
@@ -84,8 +84,8 @@ _C.TEST.PRECISE_BN.NUM_ITER = 200
 _C.EVALUATORS = ("",)
 
 # ---------------------------------------------------------------------------
-# Runtime node shared with the JAX package. Only COMPUTE_DTYPE is read by this
-# package; the other keys are kept so shared yaml files and override lists load.
+# Runtime node shared with the JAX package. Only COMPUTE_DTYPE and REMAT are read
+# by this package; the other keys are kept so shared yaml files and override lists load.
 # ---------------------------------------------------------------------------
 _C.TPU = CN()
 _C.TPU.MESH_AXES = ("data",)
@@ -93,6 +93,7 @@ _C.TPU.MESH_SHAPE = (0,)
 # Compute dtype of the convolutions ("bfloat16" or "float32"). Params stay fp32.
 _C.TPU.COMPUTE_DTYPE = "bfloat16"
 _C.TPU.DONATE = True
+# Recompute the forward in the backward (torch.utils.checkpoint): memory for time.
 _C.TPU.REMAT = False
 # Warp / conv3d scheduling keys of the JAX package's TPU kernels (unused here).
 _C.TPU.WARP_IMPL = "auto"

@@ -183,7 +183,8 @@ def do_train(
     state = create_train_state(cfg, device=device, steps_per_epoch=steps_per_epoch, model=model)
     n_params = sum(p.numel() for p in state.model.parameters())
     logger.info(f"Model has {n_params / 1e6:.2f}M parameters")
-    train_step = make_train_step(state, grad_clip=float(cfg.SOLVER.get("GRAD_CLIP", 0.0)), schedule_fn=schedule_fn)
+    train_step = make_train_step(state, grad_clip=float(cfg.SOLVER.get("GRAD_CLIP", 0.0)), schedule_fn=schedule_fn,
+                                 remat=bool(cfg.TPU.get("REMAT", False)))
 
     checkpointer = Checkpointer(cfg.OUTPUT_DIR)
     state, start_epoch = checkpointer.resume_or_load(str(cfg.MODEL.WEIGHTS), state, resume=resume)

@@ -9,6 +9,7 @@ from .build import (
 
 # importing registers the components
 from . import depth_nets  # noqa: F401
+from . import bts  # noqa: F401
 from . import google_resnet  # noqa: F401
 from . import pose_nets  # noqa: F401
 from . import meta_arch  # noqa: F401

@@ -9,10 +9,12 @@ package's ``models/torch_import.py`` (conv kernels HWIO → OIHW; norm
 ``running_mean/running_var``) and is strict: a leaf that the model lacks, a
 parameter the tree lacks, or a shape that differs raises ``ValueError``.
 
-Covers the meta-architectures of this package: ``depth_net`` = DepthResNet
-or GoogleResNet (BatchNorm: ``bn`` + ``batch_stats``; randLN: ``rln``),
-optional ``pose_net`` = PoseNet or GoogleMotionNet; the family is read from the
-tree's own entries. The names produced are those that the JAX package's
+Covers the meta-architectures of this package: ``depth_net`` = DepthResNet,
+GoogleResNet (BatchNorm: ``bn`` + ``batch_stats``; randLN: ``rln``) or BtsModel
+with any encoder of its zoo (ResNet, ResNeXt, DenseNet, MobileNetV2; the
+inverse of ``convert_bts`` and of ``convert_torch_densenet`` /
+``convert_torch_mobilenetv2``), optional ``pose_net`` = PoseNet or
+GoogleMotionNet; the family is read from the tree's own entries. The names produced are those that the JAX package's
 ``models/torch_import.py`` converters read, so ``convert_meta_arch`` of a
 ``state_dict`` gives these trees back. Imports nothing of the JAX package.
 """
@@ -91,6 +93,109 @@ def _encoder(sd, prefix: str, params: Tree, stats: Tree) -> None:
                 _put_stats(sd, f"{prefix}layer{m.group(1)}.{m.group(2)}.{_torch_block_name(sub)}", sub_node)
         else:
             _put_stats(sd, f"{prefix}{name}", node)
+
+
+def _bn_node(sd, key: str, params: Tree, stats: Tree, name: str) -> None:
+    """A BatchNorm ``name``: affine from ``params``, statistics from ``stats``
+    where it has them (a tree of gradients has none; ``load_flax_variables``
+    refuses a model entry left without a value)."""
+    _put_affine(sd, key, params[name])
+    if name in stats:
+        _put_stats(sd, key, stats[name])
+
+
+def _densenet_encoder(sd, prefix: str, params: Tree, stats: Tree) -> None:
+    """DenseNetEncoder: ``conv0``, ``norm0``, ``dense{i}_{j}``, ``trans{i}_norm`` /
+    ``trans{i}_conv``, ``norm5`` → torchvision's ``features.conv0``,
+    ``features.denseblock{i}.denselayer{j+1}.{norm1,conv1,norm2,conv2}``,
+    ``features.transition{i}.{norm,conv}``, ``features.norm5``."""
+    f = f"{prefix}features."
+    for name, node in params.items():
+        m = re.fullmatch(r"dense(\d+)_(\d+)", name)
+        t = re.fullmatch(r"trans(\d+)_(norm|conv)", name)
+        if m:
+            key = f"{f}denseblock{m.group(1)}.denselayer{int(m.group(2)) + 1}."
+            extra = set(node) - {"norm1", "conv1", "norm2", "conv2"}
+            if extra:
+                raise ValueError(f"unknown leaves {sorted(extra)} under {name}")
+            for conv in ("conv1", "conv2"):
+                _put_conv(sd, key + conv, node[conv])
+            for norm in ("norm1", "norm2"):
+                _bn_node(sd, key + norm, node, stats.get(name, {}), norm)
+        elif t and t.group(2) == "conv":
+            _put_conv(sd, f"{f}transition{t.group(1)}.conv", node)
+        elif t:
+            _bn_node(sd, f"{f}transition{t.group(1)}.norm", params, stats, name)
+        elif name == "conv0":
+            _put_conv(sd, f"{f}conv0", node)
+        elif name in ("norm0", "norm5"):
+            _bn_node(sd, f"{f}{name}", params, stats, name)
+        else:
+            raise ValueError(f"unknown DenseNet entry {name!r}")
+
+
+def _mobilenet_encoder(sd, prefix: str, params: Tree, stats: Tree) -> None:
+    """MobileNetV2Encoder: ``stem``/``bn_stem``, ``ir{i}`` = {[expand, bn_e,] dw,
+    bn_dw, project, bn_p}, ``head``/``bn_head`` → torchvision's ``features.0.{0,1}``,
+    ``features.{i}.conv.{…}``, ``features.18.{0,1}``."""
+    f = f"{prefix}features."
+    for name, node in params.items():
+        m = re.fullmatch(r"ir(\d+)", name)
+        if m:
+            key = f"{f}{m.group(1)}.conv."
+            expanded = "expand" in node
+            order = (("expand", "bn_e", "0.0", "0.1"),) if expanded else ()
+            order += (("dw", "bn_dw", f"{int(expanded)}.0", f"{int(expanded)}.1"),
+                      ("project", "bn_p", f"{1 + expanded}", f"{2 + expanded}"))
+            if set(node) != {n for conv, bn, _, _ in order for n in (conv, bn)}:
+                raise ValueError(f"unknown leaves {sorted(node)} under {name}")
+            for conv, bn, conv_key, bn_key in order:
+                _put_conv(sd, key + conv_key, node[conv])
+                _bn_node(sd, key + bn_key, node, stats.get(name, {}), bn)
+        elif name in ("stem", "head"):
+            _put_conv(sd, f"{f}{0 if name == 'stem' else 18}.0", node)
+        elif name in ("bn_stem", "bn_head"):
+            _bn_node(sd, f"{f}{0 if name == 'bn_stem' else 18}.1", params, stats, name)
+        else:
+            raise ValueError(f"unknown MobileNetV2 entry {name!r}")
+
+
+def _bts_decoder(sd, prefix: str, params: Tree, stats: Tree) -> None:
+    """BtsDecoder → the original BTS names (the inverse of ``convert_bts_decoder``):
+    ``upconv{k}.conv``; ``conv{k}`` / ``daspp_conv`` / ``get_depth`` → ``.0``;
+    ``daspp_{d}`` = {[first_bn,] conv1, bn2, conv2} →
+    ``.atrous_conv.{first_bn, aconv_sequence.1/.2/.4}``; ``reduc{s}`` =
+    {inter_{k}, plane_params | final} → ``.reduc.inter_{in}_{out}.0``,
+    ``.reduc.plane_params``, ``.reduc.final.0`` (in and out read off the kernel)."""
+    for name, node in params.items():
+        if re.fullmatch(r"upconv\d", name):
+            _put_conv(sd, f"{prefix}{name}.conv", node["conv"])
+        elif re.fullmatch(r"bn\d(_2)?", name):
+            _bn_node(sd, f"{prefix}{name}", params, stats, name)
+        elif re.fullmatch(r"conv\d|daspp_conv|get_depth", name):
+            _put_conv(sd, f"{prefix}{name}.0", node)
+        elif re.fullmatch(r"daspp_\d+", name):
+            key = f"{prefix}{name}.atrous_conv."
+            if set(node) - {"first_bn", "conv1", "bn2", "conv2"}:
+                raise ValueError(f"unknown leaves {sorted(node)} under {name}")
+            if "first_bn" in node:
+                _bn_node(sd, key + "first_bn", node, stats.get(name, {}), "first_bn")
+            _put_conv(sd, key + "aconv_sequence.1", node["conv1"])
+            _bn_node(sd, key + "aconv_sequence.2", node, stats.get(name, {}), "bn2")
+            _put_conv(sd, key + "aconv_sequence.4", node["conv2"])
+        elif re.fullmatch(r"reduc\dx\d", name):
+            for sub, conv in node.items():
+                if re.fullmatch(r"inter_\d+", sub):
+                    _, _, cin, cout = np.shape(conv["kernel"])
+                    _put_conv(sd, f"{prefix}{name}.reduc.inter_{cin}_{cout}.0", conv)
+                elif sub == "plane_params":
+                    _put_conv(sd, f"{prefix}{name}.reduc.plane_params", conv)
+                elif sub == "final":
+                    _put_conv(sd, f"{prefix}{name}.reduc.final.0", conv)
+                else:
+                    raise ValueError(f"unknown entry {sub!r} under {name}")
+        else:
+            raise ValueError(f"unknown BTS decoder entry {name!r}")
 
 
 def _decoder(sd, prefix: str, params: Tree) -> None:
@@ -222,12 +327,22 @@ def flax_to_state_dict(params: Tree, batch_stats: Optional[Tree] = None) -> Dict
     extra = (set(dn_p) | set(dn_s)) - {"encoder", "decoder"}
     if extra:
         raise ValueError(f"unknown depth_net entries {sorted(extra)}")
-    google = "n1" in dn_p.get("encoder", {})  # GoogleResNet names its norms n{c}
+    enc_p = dn_p.get("encoder", {})
+    google = "n1" in enc_p  # GoogleResNet names its norms n{c}
     if "encoder" in dn_p:
-        encoder = _google_encoder if google else _encoder
-        encoder(sd, "depth_net.encoder.encoder.", dn_p["encoder"], dn_s.get("encoder", {}))
-    if "decoder" in dn_p:
         if google:
+            encoder = _google_encoder
+        elif "conv0" in enc_p:
+            encoder = _densenet_encoder
+        elif "stem" in enc_p:
+            encoder = _mobilenet_encoder
+        else:
+            encoder = _encoder  # ResNet, ResNeXt
+        encoder(sd, "depth_net.encoder.encoder.", enc_p, dn_s.get("encoder", {}))
+    if "decoder" in dn_p:
+        if "upconv5" in dn_p["decoder"]:
+            _bts_decoder(sd, "depth_net.decoder.", dn_p["decoder"], dn_s.get("decoder", {}))
+        elif google:
             _google_decoder(sd, "depth_net.decoder.", dn_p["decoder"])
         else:
             _decoder(sd, "depth_net.decoder.decoder.", dn_p["decoder"])

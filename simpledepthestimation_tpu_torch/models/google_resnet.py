@@ -77,6 +77,7 @@ def _shortcut(x: torch.Tensor, downsample: Optional[nn.Module], stride: int) -> 
 
 
 class NormBasicBlock(nn.Module):
+    remat_unit = True  # TPU.REMAT recomputes it in the backward (parallel/train_step.py)
     expansion = 1
 
     def __init__(self, in_ch: int, planes: int, stride: int = 1, norm: Optional[str] = "BN",
@@ -100,6 +101,7 @@ class NormBasicBlock(nn.Module):
 
 
 class NormBottleneck(nn.Module):
+    remat_unit = True  # TPU.REMAT recomputes it in the backward (parallel/train_step.py)
     expansion = 4
 
     def __init__(self, in_ch: int, planes: int, stride: int = 1, norm: Optional[str] = "BN",
@@ -175,6 +177,7 @@ class NormResNetEncoder(nn.Module):
 class UpsampleBlock(nn.Module):
     """bilinear 2× → 3×3 conv + ReLU → concat skip → 3×3 conv + ReLU (zero
     padding, Xavier-uniform kernels)."""
+    remat_unit = True  # TPU.REMAT recomputes it in the backward (parallel/train_step.py)
 
     def __init__(self, in_ch: int, out_ch: int, skip_ch: int, compute_dtype: torch.dtype = torch.float32):
         super().__init__()

@@ -48,6 +48,7 @@ class Conv3x3(nn.Module):
 
 class ConvBlock(nn.Module):
     """Conv3x3 + ELU."""
+    remat_unit = True  # TPU.REMAT recomputes it in the backward (parallel/train_step.py)
 
     def __init__(self, in_channels: int, out_channels: int,
                  compute_dtype: torch.dtype = torch.float32):
@@ -63,6 +64,7 @@ class ConvGNReLU(nn.Sequential):
     index 0 is the conv and index 1 the norm, as checkpoints name them.
     ``group_norm=False`` leaves the norm out (conv, ReLU): the output then stays
     in the compute dtype."""
+    remat_unit = True  # TPU.REMAT recomputes it in the backward (parallel/train_step.py)
 
     def __init__(self, in_channels: int, out_channels: int, kernel_size: int = 3,
                  stride: int = 2, compute_dtype: torch.dtype = torch.float32,

@@ -16,14 +16,22 @@ compute-dtype policy of the port:
 - ``BatchNorm2d`` / ``GroupNorm``: compute in float32 whatever they are fed,
   and return float32. ``BatchNorm2d.forward(x, train)`` takes the mode as an
   argument, as the JAX modules do; ``nn.Module.train()`` is not consulted.
-  momentum 0.1 equals Flax's 0.9 (the conventions are one minus the other).
+  ``momentum`` and ``eps`` are the constructor's (torch's convention: momentum
+  0.1 equals Flax's 0.9, 0.01 equals BTS's 0.99; the two are one minus the other).
   The running variance folds in the *biased* batch variance, as
   ``flax.linen.BatchNorm`` does (``F.batch_norm`` would fold in the unbiased
   one, a factor n/(n−1) on the update term), so that a trained model's
-  ``train=False`` output equals the JAX package's.
+  ``train=False`` output equals the JAX package's. Inside
+  :func:`statistics_frozen` a train-mode BatchNorm normalises as always but
+  leaves its running statistics alone: the recomputation of an
+  activation-checkpointed forward (``TPU.REMAT``) runs every BatchNorm a
+  second time, and JAX's functional ``jax.checkpoint`` updates them once.
 """
 
 from __future__ import annotations
+
+import contextlib
+import threading
 
 import torch
 import torch.nn as nn
@@ -49,6 +57,22 @@ class Conv2d(nn.Conv2d):
         return self._conv_forward(x.to(dt), self.weight.to(dt), None) + self.bias.to(dt)[:, None, None]
 
 
+_frozen = threading.local()
+
+
+@contextlib.contextmanager
+def statistics_frozen():
+    """Within this context a train-mode ``BatchNorm2d`` does not update its
+    running statistics. The flag is the entering thread's: a checkpoint's
+    recomputation enters it on the thread of the backward that needs it."""
+    depth = getattr(_frozen, "depth", 0)
+    _frozen.depth = depth + 1
+    try:
+        yield
+    finally:
+        _frozen.depth = depth
+
+
 class BatchNorm2d(nn.BatchNorm2d):
     """float32 batch norm with an explicit ``train`` argument."""
 
@@ -63,6 +87,8 @@ class BatchNorm2d(nn.BatchNorm2d):
         out, mean, invstd = torch.native_batch_norm(
             x.float(), self.weight, self.bias, None, None, True, self.momentum, self.eps
         )
+        if getattr(_frozen, "depth", 0):
+            return out
         with torch.no_grad():
             self.num_batches_tracked += 1
             self.running_mean.lerp_(mean, self.momentum)

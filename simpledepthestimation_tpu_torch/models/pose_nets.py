@@ -72,6 +72,7 @@ class MotionRefiner(nn.Module):
     """Refine the translation field against one feature level: bilinear resize
     of the field to the level, concat, two conv paths (``conv1``;
     ``conv21`` → ``conv22``), a bias-free Xavier 1×1 ``conv3`` to a residual."""
+    remat_unit = True  # TPU.REMAT recomputes it in the backward (parallel/train_step.py)
 
     def __init__(self, in_channels: int, channel_mid: int, group_norm: bool = False,
                  compute_dtype: torch.dtype = torch.float32):

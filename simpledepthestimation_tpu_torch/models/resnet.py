@@ -1,8 +1,10 @@
 """ResNet encoder producing the 5-scale feature pyramid (NCHW).
 
 Counterpart of ``simpledepthestimation_tpu/models/resnet.py``: a torchvision
-ResNet-18/34/50 trunk tapped at conv1, layer1..layer4, channel schedule
-[64, 64, 128, 256, 512] (×4 from layer1 up for Bottleneck nets). Parameter
+ResNet-18/34/50/101 trunk tapped at conv1, layer1..layer4, channel schedule
+[64, 64, 128, 256, 512] (×4 from layer1 up for Bottleneck nets). With
+``groups`` > 1 the Bottleneck's 3×3 is grouped and ``width_per_group`` sets its
+width, torchvision's ResNeXt (the BTS encoder zoo, ``models/encoders.py``). Parameter
 names are torchvision's (``encoder.conv1``, ``encoder.layer1.0.bn1``,
 ``encoder.layer2.0.downsample.0``), so torchvision-style checkpoints and the
 JAX package's converters line up with ``state_dict()`` key by key.
@@ -43,6 +45,7 @@ class _Downsample(nn.ModuleList):
 
 class BasicBlock(nn.Module):
     expansion = 1
+    remat_unit = True  # TPU.REMAT recomputes it in the backward (parallel/train_step.py)
 
     def __init__(self, in_ch: int, planes: int, stride: int = 1,
                  compute_dtype: torch.dtype = torch.float32):
@@ -65,17 +68,19 @@ class BasicBlock(nn.Module):
 
 class Bottleneck(nn.Module):
     expansion = 4
+    remat_unit = True  # TPU.REMAT recomputes it in the backward (parallel/train_step.py)
 
     def __init__(self, in_ch: int, planes: int, stride: int = 1,
-                 compute_dtype: torch.dtype = torch.float32):
+                 compute_dtype: torch.dtype = torch.float32, groups: int = 1, width_per_group: int = 64):
         super().__init__()
         dt = compute_dtype
         out_ch = planes * self.expansion
-        self.conv1 = Conv2d(in_ch, planes, 1, bias=False, compute_dtype=dt)
-        self.bn1 = _bn(planes)
-        self.conv2 = Conv2d(planes, planes, 3, stride=stride, padding=1, bias=False, compute_dtype=dt)
-        self.bn2 = _bn(planes)
-        self.conv3 = Conv2d(planes, out_ch, 1, bias=False, compute_dtype=dt)
+        width = int(planes * width_per_group / 64) * groups
+        self.conv1 = Conv2d(in_ch, width, 1, bias=False, compute_dtype=dt)
+        self.bn1 = _bn(width)
+        self.conv2 = Conv2d(width, width, 3, stride=stride, padding=1, groups=groups, bias=False, compute_dtype=dt)
+        self.bn2 = _bn(width)
+        self.conv3 = Conv2d(width, out_ch, 1, bias=False, compute_dtype=dt)
         self.bn3 = _bn(out_ch)
         self.downsample = None
         if stride != 1 or in_ch != out_ch:
@@ -97,9 +102,12 @@ def max_pool_3x3_s2(x: torch.Tensor) -> torch.Tensor:
 class _Trunk(nn.Module):
     """The torchvision-named trunk: conv1, bn1, layer1..layer4."""
 
-    def __init__(self, num_layers: int, num_input_images: int, dt: torch.dtype):
+    def __init__(self, num_layers: int, num_input_images: int, dt: torch.dtype,
+                 groups: int = 1, width_per_group: int = 64):
         super().__init__()
-        block_cls = Bottleneck if BOTTLENECK[num_layers] else BasicBlock
+        bottleneck = BOTTLENECK[num_layers]
+        block_cls = Bottleneck if bottleneck else BasicBlock
+        grouping = {"groups": groups, "width_per_group": width_per_group} if bottleneck else {}
         self.conv1 = Conv2d(3 * num_input_images, 64, 7, stride=2, padding=3, bias=False,
                             compute_dtype=dt)
         self.bn1 = _bn(64)
@@ -110,7 +118,7 @@ class _Trunk(nn.Module):
             stride = 1 if layer_idx == 1 else 2
             blocks = []
             for b in range(n_blocks):
-                blocks.append(block_cls(in_ch, planes, stride if b == 0 else 1, compute_dtype=dt))
+                blocks.append(block_cls(in_ch, planes, stride if b == 0 else 1, compute_dtype=dt, **grouping))
                 in_ch = planes * block_cls.expansion
             setattr(self, f"layer{layer_idx}", nn.ModuleList(blocks))
 
@@ -120,10 +128,10 @@ class ResNetEncoder(nn.Module):
     at strides 2/4/8/16/32 with channels ``num_ch_enc``."""
 
     def __init__(self, num_layers: int = 18, num_input_images: int = 1,
-                 compute_dtype: torch.dtype = torch.float32):
+                 compute_dtype: torch.dtype = torch.float32, groups: int = 1, width_per_group: int = 64):
         super().__init__()
         self.num_layers = num_layers
-        self.encoder = _Trunk(num_layers, num_input_images, compute_dtype)
+        self.encoder = _Trunk(num_layers, num_input_images, compute_dtype, groups, width_per_group)
 
     @property
     def num_ch_enc(self) -> Tuple[int, ...]:

@@ -13,22 +13,35 @@ gathers directly and has no window.
 
 Semantics kept from the JAX step: the total loss is the sum of the model's
 outputs whose key contains ``"loss"``; ``grad_norm`` is the global 2-norm over
-all gradients, reported whether or not clipping is on; clipping scales every
+all gradients, the frozen parameters' included (``BtsModel``; they are in no
+optimizer group), reported whether or not clipping is on; clipping scales every
 gradient by ``min(1, clip / (norm + 1e-12))``. With bfloat16 convolutions the
 parameters, their gradients and the optimizer state stay float32. The noise a
 model draws in training (RandLayerNorm) comes from the state's own
-``noise_generator``, never from the global random state.
+``noise_generator``, never from the global random state. ``remat``
+(``TPU.REMAT``) keeps only the inputs of the nets' blocks (each class that sets
+``remat_unit``: residual blocks, dense layers, decoder stages) and recomputes a
+block's forward when the backward reaches it (``torch.utils.checkpoint``,
+non-reentrant, one block at a time, so the peak memory falls: one checkpoint
+around the whole model, as the JAX package's ``jax.checkpoint`` is placed, would
+recompute every activation at once at the start of the backward). Memory
+changes, the result does not: the recomputation replays the same noise and
+leaves the BatchNorm running statistics as the forward left them.
 """
 
 from __future__ import annotations
 
+import contextlib
+import functools
 from dataclasses import dataclass
 from typing import Callable, Dict, Optional, Union
 
 import torch
 import torch.nn as nn
+import torch.utils.checkpoint
 
 from ..models.build import build_model, resolve_device
+from ..models.norm_layers import statistics_frozen
 from ..models.pretrained import maybe_load_pretrained_encoder
 from ..solver.build import ScheduledLR, build_optimizer
 
@@ -64,8 +77,10 @@ def create_train_state(
     the caller (e.g. with weights loaded) is moved to the device and used
     instead.
 
-    An encoder name with the ``pt`` suffix (``"18pt"``) gets its ImageNet
-    weights here, between the model and its optimizer, from a local file
+    An encoder name with the ``pt`` suffix (``"18pt"``) or of the BTS zoo
+    (``"resnet50_bts"``) gets its ImageNet weights here, between the model and
+    its optimizer (which leaves out the parameters ``BtsModel`` freezes), from
+    a local file
     (:func:`..models.pretrained.maybe_load_pretrained_encoder`; without one it
     keeps the seeded weights and warns). The JAX package does this in
     ``engine.runtime.do_train`` right after making the state; the port's
@@ -83,10 +98,67 @@ def create_train_state(
                       pretrained_weights=weights)
 
 
+def _recompute_contexts(generator: Optional[torch.Generator]):
+    """``context_fn`` of ``torch.utils.checkpoint``: the forward context notes
+    the noise generator's state as the block's forward found it; the recompute
+    context replays from there with the BatchNorm running statistics frozen,
+    and gives the generator back the state it had when the recomputation began
+    (also where the recomputation stops early)."""
+    before = {}
+
+    @contextlib.contextmanager
+    def forward():
+        if generator is not None:
+            before["state"] = generator.get_state()
+        yield
+
+    @contextlib.contextmanager
+    def recompute():
+        current = None if generator is None else generator.get_state()
+        if generator is not None:
+            generator.set_state(before["state"])
+        try:
+            with statistics_frozen():
+                yield
+        finally:
+            if generator is not None:
+                generator.set_state(current)
+
+    return forward(), recompute()
+
+
+def _checkpointed(forward, generator, *args, **kwargs):
+    return torch.utils.checkpoint.checkpoint(
+        forward, *args, use_reentrant=False, preserve_rng_state=False,  # the port draws from no global generator
+        context_fn=functools.partial(_recompute_contexts, generator), **kwargs)
+
+
+@contextlib.contextmanager
+def _rematerialised(model: nn.Module, generator: Optional[torch.Generator]):
+    """Within this context every block of ``model`` whose class sets
+    ``remat_unit`` (the outermost, where one holds another) runs under
+    :func:`torch.utils.checkpoint.checkpoint`; the blocks' own ``forward``
+    comes back on exit (the backward that recomputes them runs the one it
+    captured)."""
+    blocks, prefixes = [], []
+    for name, m in model.named_modules():
+        if getattr(type(m), "remat_unit", False) and not any(name.startswith(p) for p in prefixes):
+            blocks.append(m)
+            prefixes.append(name + ".")
+    for m in blocks:
+        m.forward = functools.partial(_checkpointed, m.forward, generator)
+    try:
+        yield
+    finally:
+        for m in blocks:
+            del m.forward
+
+
 def make_train_step(
     state: TrainState,
     grad_clip: float = 0.0,
     schedule_fn: Optional[Callable[[int], Dict[str, float]]] = None,
+    remat: bool = False,
 ) -> Callable[[Dict[str, torch.Tensor]], Dict[str, torch.Tensor]]:
     """``step(batch) -> metrics``: one forward, backward and update of ``state``.
 
@@ -97,7 +169,8 @@ def make_train_step(
     for the card for them.
     ``metrics`` holds ``total_loss``, ``grad_norm`` and every entry of the
     model's loss dict as detached 0-d tensors on that device; nothing in the
-    step waits for the device."""
+    step waits for the device. ``remat``: keep the blocks' inputs only and
+    recompute their forward in the backward (``TPU.REMAT``, :func:`_rematerialised`)."""
     params = [p for p in state.model.parameters() if p.requires_grad]
     device = params[0].device
 
@@ -106,8 +179,9 @@ def make_train_step(
             extra = schedule_fn(state.step)
             batch = {**batch, **{k: torch.full((), v, dtype=torch.float32, device=device)
                                  for k, v in extra.items()}}
-        state.optimizer.zero_grad(set_to_none=True)
-        outputs = state.model(batch, train=True, generator=state.noise_generator)
+        state.model.zero_grad(set_to_none=True)  # the frozen parameters are in no optimizer group
+        with _rematerialised(state.model, state.noise_generator) if remat else contextlib.nullcontext():
+            outputs = state.model(batch, train=True, generator=state.noise_generator)
         total = torch.stack([v for k, v in outputs.items() if "loss" in k]).sum()
         total.backward()
 

@@ -16,13 +16,15 @@ A schedule is a plain function of the step count. ``ScheduledLR.step()``,
 called after ``optimizer.step()``, advances the count, so update ``k`` (from 0)
 runs at ``schedule(k)``: the rate optax reads at the count before the update.
 
-The frozen-parameter rules of the JAX package apply to ``BtsModel`` only, which
-this package does not have yet; they arrive with it.
+Frozen parameters (``BtsModel`` only, :func:`frozen_parameter_names`) are left
+out of every group: no update, no weight decay. They keep ``requires_grad``, so
+their gradients still enter the train step's ``grad_norm`` and clip scale, as
+the JAX package's ``optax.set_to_zero`` after the clip has it.
 """
 
 from __future__ import annotations
 
-from typing import Callable, Dict, List, Sequence, Tuple
+from typing import Callable, Collection, Dict, List, Sequence, Tuple
 
 import torch
 import torch.nn as nn
@@ -86,17 +88,56 @@ class ScheduledLR:
         self._apply()
 
 
+TRUNK = "depth_net.encoder.encoder."  # the torchvision-named encoder trunk
+
+
+def _freeze_rules(cfg) -> List[Tuple[str, ...]]:
+    """The frozen-parameter rules of the JAX package's ``freeze_substrings_from_cfg``
+    over this package's parameter names: a rule is a tuple of substrings that
+    must all occur in the dotted name. Only ``BtsModel`` freezes, and always:
+    its encoder's stem conv and every encoder ``bn1``/``bn2``/``bn3`` affine pair
+    (not the ``downsample.1`` BatchNorms, not the decoder); ``FIX_1ST_CONV`` adds
+    the first residual block, ``FIX_1ST_CONVS`` the first two. DenseNet: ``conv0``
+    and every norm (and the first one or two dense layers); MobileNetV2: nothing."""
+    dn = cfg.MODEL.get("DEPTH_NET", {})
+    if str(dn.get("NAME", "")) != "BtsModel":
+        return []
+    enc = str(dn.get("ENCODER_NAME", ""))
+    if enc.startswith("mobilenet"):
+        return []
+    if "resne" in enc:
+        rules = [(TRUNK + "conv1.",)] + [(TRUNK, f".bn{i}.") for i in (1, 2, 3)]
+        first = [TRUNK + "layer1.0.", TRUNK + "layer1.1."]
+    else:
+        rules = [(TRUNK + "features.conv0.",), (TRUNK, "norm")]
+        first = [TRUNK + f"features.denseblock1.denselayer{j}." for j in (1, 2)]
+    if dn.get("FIX_1ST_CONVS", False):
+        rules += [(f,) for f in first]
+    elif dn.get("FIX_1ST_CONV", False):
+        rules += [(first[0],)]
+    return rules
+
+
+def frozen_parameter_names(cfg, model: nn.Module) -> List[str]:
+    """Names of ``model``'s parameters that a rule of :func:`_freeze_rules` selects."""
+    rules = _freeze_rules(cfg)
+    return [name for name, _ in model.named_parameters()
+            if any(all(part in name + "." for part in rule) for rule in rules)]
+
+
 def param_groups_by_name(
-    model: nn.Module, groups: Dict[str, Sequence[str]], default: str
+    model: nn.Module, groups: Dict[str, Sequence[str]], default: str, frozen: Collection[str] = ()
 ) -> Dict[str, List[nn.Parameter]]:
     """Sort the trainable parameters into named groups: a parameter belongs to
     the first group one of whose substrings occurs in its dotted name, else to
-    ``default``. Every group is present in the result, in the order given,
-    ``default`` last."""
+    ``default``. Parameters named in ``frozen``, or with ``requires_grad``
+    off, belong to none. Every group is present in the result, in the order
+    given, ``default`` last."""
     out: Dict[str, List[nn.Parameter]] = {label: [] for label in groups}
     out.setdefault(default, [])
+    frozen = set(frozen)
     for name, p in model.named_parameters():
-        if not p.requires_grad:
+        if not p.requires_grad or name in frozen:
             continue
         label = next((lb for lb, subs in groups.items() if any(s in name for s in subs)), default)
         out[label].append(p)
@@ -107,8 +148,10 @@ def build_optimizer(cfg, model: nn.Module, steps_per_epoch: int) -> Tuple[torch.
     """Build the optimizer and its per-step schedule for ``cfg.SOLVER``.
 
     Each parameter group carries its ``name``. A group without parameters is
-    left out (``torch.optim`` refuses an empty one)."""
+    left out (``torch.optim`` refuses an empty one). Frozen parameters
+    (:func:`frozen_parameter_names`) are in no group."""
     solver = cfg.SOLVER
+    frozen = frozen_parameter_names(cfg, model)
     max_steps = int(solver.MAX_EPOCHS) * steps_per_epoch
     opt_name = str(solver.get("OPT", "adam_multistep"))
 
@@ -119,7 +162,7 @@ def build_optimizer(cfg, model: nn.Module, steps_per_epoch: int) -> Tuple[torch.
         wd = float(solver.get("WEIGHT_DECAY", 1e-2))
         eps = float(solver.get("EPS", 1e-6))
         sched = poly_lr_schedule(base_lr, end_lr, max_steps)
-        params = param_groups_by_name(model, {"encoder": ["encoder"]}, default="decoder")
+        params = param_groups_by_name(model, {"encoder": ["encoder"]}, default="decoder", frozen=frozen)
         spec = [("encoder", wd, sched), ("decoder", 0.0, sched)]
         groups = [
             {"name": name, "params": params[name], "lr": s(0), "weight_decay": decay}
@@ -138,7 +181,7 @@ def build_optimizer(cfg, model: nn.Module, steps_per_epoch: int) -> Tuple[torch.
         milestones = [int(m) * steps_per_epoch for m in milestones_epochs]
         gamma = float(solver.get("GAMMA", 0.1))
         eps = float(solver.get("EPS", 1e-8))
-        params = param_groups_by_name(model, {"pose": ["pose_net"]}, default="depth")
+        params = param_groups_by_name(model, {"pose": ["pose_net"]}, default="depth", frozen=frozen)
         spec = [
             ("depth", multistep_lr_schedule(depth_lr, milestones, gamma)),
             ("pose", multistep_lr_schedule(pose_lr, milestones, gamma)),

@@ -70,8 +70,11 @@ def test_every_module_imports_without_jax(loaded_modules):
             "simpledepthestimation_tpu_torch.data.preprocess.augmentation",
             "simpledepthestimation_tpu_torch.evaluation.depth_evaluation",
             "simpledepthestimation_tpu_torch.engine.runtime",
-            "simpledepthestimation_tpu_torch.utils.events"} <= set(names)
-    assert len(ENTRY_POINTS) == 2
+            "simpledepthestimation_tpu_torch.utils.events",
+            "simpledepthestimation_tpu_torch.models.bts",
+            "simpledepthestimation_tpu_torch.models.encoders"} <= set(names)
+    assert {os.path.relpath(p, REPO) for p in ENTRY_POINTS} == {
+        f"projects/{family}/train_torch.py" for family in ("MonoDepth2", "MotionLearning", "Supervised")}
     bad = loaded & {"jax", "jaxlib", "flax", "optax", "orbax"}
     assert not bad, bad
 
@@ -124,6 +127,21 @@ def test_build_model_needs_cuda_unless_cpu_is_named():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             build_model(cfg)
     model = build_model(cfg, device="cpu")
+    assert next(model.parameters()).device.type == "cpu"
+
+
+@pytest.mark.parametrize("name", ["bts_r50.yaml", "resnet18.yaml"])
+def test_supervised_configs_build_on_cuda_unless_cpu_is_named(name):
+    """The shipped Supervised configs as they stand: BtsModel-R50 and DepthResNet-18."""
+    from torch_port_helpers import supervised_cfgs
+    from simpledepthestimation_tpu_torch.models import build_model
+
+    _, cfg = supervised_cfgs(name)
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            build_model(cfg)
+    model = build_model(cfg, device="cpu")
+    assert type(model.depth_net).__name__ == str(cfg.MODEL.DEPTH_NET.NAME)
     assert next(model.parameters()).device.type == "cpu"
 
 

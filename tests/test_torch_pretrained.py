@@ -198,8 +198,55 @@ def test_shipped_yaml_builds_a_train_state_with_the_warm_start(path, tmp_path, m
     assert any(p is conv1 for group in state.optimizer.param_groups for p in group["params"])
 
 
-def test_bts_encoder_name_warns(caplog):
-    _, cfg = _cfgs(MONODEPTH2, ["MODEL.DEPTH_NET.ENCODER_NAME", "resnet50_bts"])
+def _bts_cfg(extra=()):
+    """``projects/Supervised/configs/bts_r50.yaml`` (``resnet50_bts``) at ``BTS_SIZE`` 128, float32."""
+    cfg = get_cfg()
+    cfg.merge_from_file(os.path.join(REPO, "projects", "Supervised", "configs", "bts_r50.yaml"))
+    cfg.merge_from_list(["MODEL.DEPTH_NET.BTS_SIZE", "128", "TPU.COMPUTE_DTYPE", "float32", *extra])
+    return cfg
+
+
+def test_resnet50_bts_loads_from_a_local_file(tmp_path, monkeypatch):
+    """``resnet50_bts`` reads ``$SDE_TPU_PRETRAINED_DIR/resnet50.pth`` (torchvision's
+    names, with its ``fc`` head) in ``create_train_state``: the encoder holds the
+    file's values, the decoder its seeded ones, and the optimizer the loaded
+    tensors but for the ones BTS freezes."""
+    cfg = _bts_cfg()
+    model = build_model(cfg, device="cpu", generator=torch.Generator().manual_seed(0))
+    rng = np.random.RandomState(8)
+    sd = {k: torch.from_numpy(rng.rand(*v.shape).astype(np.float32)) if v.is_floating_point() else v
+          for k, v in model.depth_net.encoder.encoder.state_dict().items()}
+    sd["fc.weight"], sd["fc.bias"] = torch.zeros(1000, 2048), torch.zeros(1000)
+    torch.save(sd, str(tmp_path / "resnet50.pth"))
+    monkeypatch.setenv("SDE_TPU_PRETRAINED_DIR", str(tmp_path))
+    seeded = _port_state(model)
+    state = create_train_state(cfg, device="cpu", generator=torch.Generator().manual_seed(0))
+    assert state.pretrained_weights == str(tmp_path / "resnet50.pth")
+    after = _port_state(state.model)
+    enc = "depth_net.encoder.encoder."
+    assert all(torch.equal(after[k], sd[k[len(enc):]]) for k in after if k.startswith(enc))
+    assert all(torch.equal(after[k], seeded[k]) for k in after if not k.startswith(enc))
+    in_optimizer = {id(p) for g in state.optimizer.param_groups for p in g["params"]}
+    trunk = state.model.depth_net.encoder.encoder
+    assert id(trunk.layer1[0].conv1.weight) in in_optimizer and id(trunk.conv1.weight) not in in_optimizer
+
+
+@pytest.mark.parametrize("case", ["missing-file", "name-outside-the-table"])
+def test_bts_warm_start_warns_and_leaves_the_encoder_untouched(case, tmp_path, monkeypatch, caplog):
+    """A ``*_bts`` name whose file is not in reach, or one that ``BTS_CONVERTIBLE``
+    does not list, warns and loads nothing."""
+    monkeypatch.setenv("SDE_TPU_PRETRAINED_DIR", str(tmp_path))  # holds no weight file
+    cfg = _bts_cfg()
+    model = build_model(cfg, device="cpu", generator=torch.Generator().manual_seed(0))
+    seeded = _port_state(model)
+    if case == "name-outside-the-table":
+        cfg.MODEL.DEPTH_NET.ENCODER_NAME = "efficientnet_b0_bts"
+        assert "efficientnet_b0_bts" not in pretrained.BTS_CONVERTIBLE
+        message = "No pretrained conversion for BTS encoder efficientnet_b0_bts"
+    else:
+        message = "No ImageNet weights found for encoder 50"
     with caplog.at_level(logging.WARNING, logger=LOGGER):
-        assert pretrained.maybe_load_pretrained_encoder(cfg, model=None) is None
-    assert any("No pretrained conversion for BTS encoder resnet50_bts" in r.message for r in caplog.records)
+        assert pretrained.maybe_load_pretrained_encoder(cfg, model) is None
+    assert any(message in r.message for r in caplog.records), [r.message for r in caplog.records]
+    after = _port_state(model)
+    assert all(torch.equal(after[k], seeded[k]) for k in seeded)

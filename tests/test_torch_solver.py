@@ -176,3 +176,136 @@ def test_three_updates_match_optax(recipe, rng):
         sched.step()
         for n, p in model.named_parameters():
             np.testing.assert_allclose(p.detach().numpy(), _leaf(params, n), atol=1e-6, rtol=0, err_msg=n)
+
+
+# --- BtsModel's frozen parameters and TPU.REMAT ---
+
+FREEZE_CASES = {
+    "resnet50_bts": ("bts_r50.yaml", []),
+    "resnet50_bts-FIX_1ST_CONV": ("bts_r50.yaml", ["MODEL.DEPTH_NET.FIX_1ST_CONV", "True"]),
+    "resnet50_bts-FIX_1ST_CONVS": ("bts_r50.yaml", ["MODEL.DEPTH_NET.FIX_1ST_CONVS", "True"]),
+    "densenet121_bts": ("bts_r50.yaml", ["MODEL.DEPTH_NET.ENCODER_NAME", "densenet121_bts"]),
+    "mobilenetv2_bts": ("bts_r50.yaml", ["MODEL.DEPTH_NET.ENCODER_NAME", "mobilenetv2_bts"]),
+    "DepthResNet": ("resnet18.yaml", []),
+}
+
+
+def _jax_frozen_tree(cfg_j, params):
+    """1.0 where the JAX package's optimizer (``apply_freeze`` around a plain
+    SGD step) leaves a parameter unmoved, 0.0 where it moves it."""
+    tx = jsolver.apply_freeze(optax.sgd(1.0), jsolver.freeze_substrings_from_cfg(cfg_j))
+
+    @jax.jit
+    def updates_of_ones(p):
+        return tx.update(jax.tree_util.tree_map(jnp.ones_like, p), tx.init(p), p)[0]
+
+    updates = updates_of_ones(params)
+    return jax.tree_util.tree_map(lambda u: np.full(u.shape, float(not np.any(np.asarray(u))), np.float32), updates)
+
+
+@pytest.mark.parametrize("case", sorted(FREEZE_CASES))
+def test_freeze_rules_select_the_jax_packages_parameters(case):
+    """The port's rules pick exactly the parameters the JAX package's rules pick,
+    mapped through ``flax_import``'s names; the optimizer holds all the others."""
+    from simpledepthestimation_tpu.models.torch_import import convert_meta_arch
+    from simpledepthestimation_tpu_torch.models import build_model
+    from simpledepthestimation_tpu_torch.models.flax_import import flax_to_state_dict
+    from simpledepthestimation_tpu_torch.solver import frozen_parameter_names
+
+    from torch_port_helpers import reference_state_dict, supervised_cfgs
+
+    yaml_name, extra = FREEZE_CASES[case]
+    cfg_j, cfg_t = supervised_cfgs(yaml_name, ["MODEL.DEPTH_NET.BTS_SIZE", "128", *extra])
+    model = build_model(cfg_t, device="cpu")
+    sd = {k: v for k, v in model.state_dict().items() if not k.endswith("num_batches_tracked")}
+    params, _ = convert_meta_arch(reference_state_dict(sd, cfg_j), cfg_j)
+    marks = flax_to_state_dict(_jax_frozen_tree(cfg_j, params))
+    assert set(marks) == {k for k, _ in model.named_parameters()}
+    want = {k for k, m in marks.items() if m.all()}
+    got = set(frozen_parameter_names(cfg_t, model))
+    assert got == want, (sorted(got - want)[:5], sorted(want - got)[:5])
+    if case.startswith("resnet50_bts"):
+        # the stem conv and 49 BN pairs, not the 4 downsample BNs; FIX_1ST_CONV adds layer1.0's three
+        # convs and its downsample (conv and BN pair), FIX_1ST_CONVS also layer1.1's three convs
+        extra = {"resnet50_bts": 0, "resnet50_bts-FIX_1ST_CONV": 6, "resnet50_bts-FIX_1ST_CONVS": 9}[case]
+        assert len(want) == 1 + 2 * 49 + extra
+    else:
+        assert bool(want) == case.startswith("densenet")
+    optimizer, _ = build_optimizer(cfg_t, model, steps_per_epoch=1)
+    held = {id(p) for g in optimizer.param_groups for p in g["params"]}
+    assert {k for k, p in model.named_parameters() if id(p) not in held} == want
+
+
+def test_frozen_parameters_get_no_weight_decay():
+    """A frozen parameter is in no AdamW group; the rest of the encoder decays.
+    (One step on the port and the JAX package's ``grad_norm``:
+    ``tests/test_torch_bts.py``, where the JAX gradient is compiled anyway.)"""
+    from simpledepthestimation_tpu_torch.parallel import create_train_state
+    from simpledepthestimation_tpu_torch.solver import frozen_parameter_names
+
+    from torch_port_helpers import supervised_cfgs
+
+    _, cfg_t = supervised_cfgs("bts_r50.yaml", ["MODEL.DEPTH_NET.BTS_SIZE", "128"])
+    state = create_train_state(cfg_t, device="cpu")
+    frozen = set(frozen_parameter_names(cfg_t, state.model))
+    names = {id(p): k for k, p in state.model.named_parameters()}
+    groups = {g["name"]: (g["weight_decay"], {names[id(p)] for p in g["params"]}) for g in state.optimizer.param_groups}
+    assert groups["encoder"][0] == 0.01 and groups["decoder"][0] == 0.0
+    assert not frozen & (groups["encoder"][1] | groups["decoder"][1])
+    assert groups["encoder"][1] | groups["decoder"][1] | frozen == set(names.values())
+    assert all(k.startswith("depth_net.encoder.") for k in groups["encoder"][1])
+    assert all(p.requires_grad for p in state.model.parameters())  # frozen is not requires_grad=False
+
+
+def test_remat_changes_memory_not_math():
+    """``TPU.REMAT`` recomputes the forward in the backward. From one state, one
+    step with and one without give equal losses, gradients, parameters and
+    running statistics (the recomputation's BatchNorms leave the statistics as
+    the forward left them), and equal counters."""
+    from simpledepthestimation_tpu_torch.parallel import create_train_state, make_train_step
+
+    from torch_port_helpers import batch_to_torch, make_sup_batch, supervised_cfgs
+
+    _, cfg = supervised_cfgs("bts_r50.yaml", ["MODEL.DEPTH_NET.BTS_SIZE", "128", "TPU.COMPUTE_DTYPE", "float32"])
+    batch = batch_to_torch(make_sup_batch(seed=4, B=2, H=64, W=96, flip=(False, True)))
+    runs = []
+    for remat in (False, True):
+        state = create_train_state(cfg, device="cpu", generator=torch.Generator().manual_seed(0), steps_per_epoch=4)
+        metrics = make_train_step(state, remat=remat)(batch)
+        grads = {k: p.grad.clone() for k, p in state.model.named_parameters()}
+        runs.append((metrics, grads, state.model.state_dict()))
+    (m0, g0, s0), (m1, g1, s1) = runs
+    assert all(torch.equal(m0[k], m1[k]) for k in m0)
+    assert all(torch.equal(g0[k], g1[k]) for k in g0)
+    assert set(s0) == set(s1) and all(torch.equal(s0[k], s1[k]) for k in s0)
+    assert all(int(s1[k]) == 1 for k in s1 if k.endswith("num_batches_tracked"))
+
+
+def test_remat_replays_the_training_noise():
+    """MotionLearning's RandLayerNorm draws noise from the state's generator: the
+    recomputation replays the same draws, and the generator ends where the step
+    without REMAT leaves it."""
+    from simpledepthestimation_tpu_torch.config import get_cfg
+    from simpledepthestimation_tpu_torch.parallel import create_train_state, make_train_step
+
+    from torch_port_helpers import REPO
+
+    cfg = get_cfg()
+    cfg.merge_from_file(f"{REPO}/projects/MotionLearning/configs/resnet18.yaml")
+    cfg.merge_from_list(["MODEL.DEPTH_NET.ENCODER_NAME", "18", "TPU.COMPUTE_DTYPE", "float32"])
+    rng = np.random.RandomState(0)
+    img = torch.from_numpy(rng.rand(2, 3, 32, 64).astype(np.float32))
+    batch = {"img": img, "ctx_img": torch.roll(img, 2, dims=3)[:, None].contiguous(),
+             "intrinsics": torch.tensor([[[37.0, 0, 32], [0, 61, 16], [0, 0, 1]]]).repeat(2, 1, 1),
+             "flip": torch.tensor([False, True])}
+    schedule = lambda i: {"noise_stddev": 0.5, "motion_weight": 1.0}  # noqa: E731
+    runs = []
+    for remat in (False, True):
+        state = create_train_state(cfg, device="cpu", generator=torch.Generator().manual_seed(0), steps_per_epoch=4)
+        metrics = make_train_step(state, schedule_fn=schedule, remat=remat)(batch)
+        runs.append((metrics, {k: p.grad.clone() for k, p in state.model.named_parameters() if p.grad is not None},
+                     state.noise_generator.get_state()))
+    (m0, g0, n0), (m1, g1, n1) = runs
+    assert all(torch.equal(m0[k], m1[k]) for k in m0)
+    assert set(g0) == set(g1) and all(torch.equal(g0[k], g1[k]) for k in g0)
+    assert torch.equal(n0, n1)

@@ -214,3 +214,67 @@ REGIMES = {
     "bimodal-border-clip": _bimodal_border_clip,
     "large-uniform-shift": _large_uniform_shift,
 }
+
+
+# --- the Supervised family (SupDepthModel with DepthResNet or BtsModel) ---
+
+SUPERVISED = os.path.join(REPO, "projects", "Supervised", "configs")
+
+
+def supervised_cfgs(yaml_name, overrides=()):
+    """``projects/Supervised/configs/<yaml_name>`` with ``overrides`` under both
+    packages: returns (jax_cfg, torch_cfg)."""
+    from simpledepthestimation_tpu.config import get_cfg as get_cfg_jax
+    from simpledepthestimation_tpu_torch.config import get_cfg as get_cfg_torch
+
+    out = []
+    for get_cfg in (get_cfg_jax, get_cfg_torch):
+        cfg = get_cfg()
+        cfg.merge_from_file(os.path.join(SUPERVISED, yaml_name))
+        cfg.merge_from_list(list(overrides))
+        out.append(cfg)
+    return tuple(out)
+
+
+def reference_state_dict(port_sd, cfg):
+    """The port's ``state_dict`` under the names the JAX package's
+    ``convert_meta_arch`` reads: a BTS encoder trunk is the original code's
+    ``encoder.base_model`` (torchvision's ``features`` itself for DenseNet and
+    MobileNetV2); every other name is already the reference's."""
+    if str(cfg.MODEL.DEPTH_NET.NAME) != "BtsModel":
+        return dict(port_sd)
+    out = {}
+    for k, v in port_sd.items():
+        if k.startswith("depth_net.encoder.encoder."):
+            rest = k[len("depth_net.encoder.encoder."):]
+            k = "depth_net.encoder.base_model." + (rest[len("features."):] if rest.startswith("features.") else rest)
+        out[k] = v
+    return out
+
+
+def shared_variables(port_model, cfg_jax, seed=1):
+    """Perturbed Flax variables (numpy) made from the port model's seeded init
+    through the JAX package's ``convert_meta_arch`` (no JAX ``init`` compile),
+    loaded back into ``port_model``: both sides then hold the same float32 values."""
+    from simpledepthestimation_tpu.models.torch_import import convert_meta_arch
+    from simpledepthestimation_tpu_torch.models.flax_import import load_flax_variables
+
+    sd = {k: v for k, v in port_model.state_dict().items() if not k.endswith("num_batches_tracked")}
+    params, stats = convert_meta_arch(reference_state_dict(sd, cfg_jax), cfg_jax)
+    variables = randomize_variables(to_numpy_tree({"params": params, "batch_stats": stats}), seed=seed)
+    load_flax_variables(port_model, variables["params"], variables["batch_stats"])
+    return variables
+
+
+def make_sup_batch(seed=0, B=2, H=64, W=96, flip=None):
+    """A Supervised batch as numpy NHWC arrays: smooth frames, ground-truth depth
+    in (0, 40) with a third of the pixels at or below 1 (outside ``silog_loss``'s
+    ``gt > 1`` mask), KITTI-like intrinsics, and ``flip``."""
+    rng = np.random.RandomState(seed)
+    img = smooth_field(rng, B, H, W, 3)
+    depth = (1.5 + 38.0 * smooth_field(rng, B, H, W, 1)).astype(np.float32)
+    depth[rng.rand(B, H, W, 1) < 1 / 3] = rng.rand() * 1.0
+    K = np.tile(np.array([[[0.58 * W, 0, W / 2], [0, 1.92 * H, H / 2], [0, 0, 1]]], np.float32), (B, 1, 1))
+    K[:, 0, 0] *= 1.0 + 0.1 * np.arange(B, dtype=np.float32)  # focals differ between the samples
+    return {"img": img, "depth": depth, "intrinsics": K,
+            "flip": np.zeros((B,), bool) if flip is None else np.asarray(flip, bool)}
