@@ -13,9 +13,11 @@ step; MotionLearning-R18 at B=16, 128x416: the train step with the noise ramp
 and the motion burn-in at their ends; both again through their training entry
 points, loader, checkpoints and evaluation included; the Supervised family at
 B=16, 352x704: DepthResNet-18 and BTS-R50 train steps, BTS with its frozen
-parameters and with ``TPU.REMAT`` off and on, and BTS through its entry point)
-and compares forward, gradients and one update of each model with a CPU copy at
-a small shape. Every phase
+parameters and with ``TPU.REMAT`` off and on, and BTS through its entry point;
+PackNet01-1A on the MonoDepth2 step at B=8, 192x640, with ``TPU.REMAT`` off
+and on; the rigid MotionLearning step, GoogleResNetv2 + GooglePoseNet, at B=16,
+128x416) and compares forward, gradients and one update of each model with a
+CPU copy at a small shape. Every phase
 prints one JSON line; a failed phase raises, so the exit code is non-zero and
 the closing line is not printed. Without a CUDA device it exits non-zero at
 once: nothing here falls back to the CPU.
@@ -34,11 +36,17 @@ B=16 on synthetic data: two epochs with checkpoints and evaluations,
 error), supervised_train_path and bts_train_path (``projects/Supervised/configs/
 {resnet18,bts_r50}.yaml`` as shipped; neither launches K1–K5, checked),
 supervised_cli_train_path (``projects/Supervised/train_torch.py`` as the two
-above, with ``bts_r50.yaml``'s model), cpu_agreement (float32, then ``cpu_agreement_bf16``: the loss pass and depth in
+above, with ``bts_r50.yaml``'s model), packnet_train_path (``packnet_1a.yaml``
+as shipped), motion_rigid_train_path (MotionLearning's ``resnet18.yaml`` with
+GoogleResNetv2 and GooglePoseNet; a ResNet-18 weight file in reach, which the
+warm start of a net without a torchvision encoder must leave unread),
+cpu_agreement (float32, then ``cpu_agreement_bf16``: the loss pass and depth in
 bfloat16 against the CPU copy), cpu_agreement_train_step, cpu_agreement_motion_train_step,
-cpu_agreement_bts (and,
-with ``--profile``, a torch.profiler breakdown of the forward calls and of both
-train steps by kernel). Then one line ``{"kernels": [...]}`` with one entry per kernel
+cpu_agreement_bts, cpu_agreement_packnet (1A and 1B, bf16; its train step, and its
+gradient with cuDNN off), cpu_agreement_motion_rigid_train_step (and,
+with ``--profile``, a torch.profiler breakdown of the forward calls and of the
+train steps by kernel, PackNet's convolutions and GroupNorms by shape). Then one
+line ``{"kernels": [...]}`` with one entry per kernel
 at the main path's largest shape, the card's name and power limit as nvidia-smi
 prints them, and the closing line ``{"ok": true, "device": {...}}``. With
 ``--kernels-only`` it stops after the kernels phase, without the closing line
@@ -120,16 +128,18 @@ def emit(obj) -> None:
     print(json.dumps(obj), flush=True)
 
 
-def emit_warm_start(model: str, cfg, state) -> None:
+def emit_warm_start(model: str, cfg, state, pretrained: bool = True) -> None:
     """One line per model: its encoder name and the weight file its warm start
     found (``None``: the encoder keeps its seeded weights; the port's logger
-    says so on standard error at each state made)."""
+    says so on standard error at each state made). ``pretrained``: whether the
+    shipped config names an ImageNet-pretrained encoder (PackNet's names none)."""
     from simpledepthestimation_tpu_torch.models.pretrained import BTS_CONVERTIBLE
 
-    name = str(cfg.MODEL.DEPTH_NET.ENCODER_NAME)
+    name = str(cfg.MODEL.DEPTH_NET.get("ENCODER_NAME", ""))
     emit({"phase": "warm_start", "model": model, "encoder_name": name, "weights_file": state.pretrained_weights})
-    if not (name.endswith("pt") or name in BTS_CONVERTIBLE):
-        raise AssertionError(f"the shipped config names no ImageNet-pretrained encoder: {name}")
+    if pretrained != (name.endswith("pt") or name in BTS_CONVERTIBLE):
+        raise AssertionError(f"the shipped config names {'no' if pretrained else 'an'} ImageNet-pretrained "
+                             f"encoder: {name!r}")
 
 
 def nvidia_smi_line() -> str:
@@ -1384,11 +1394,8 @@ def phase_bts_train_path(device):
     """``projects/Supervised/configs/bts_r50.yaml`` as shipped: BtsModel resnet50_bts,
     BTS_SIZE 512, DATASET kitti, the freeze rules, bf16, B=16 at 352x704. Then,
     from one saved state, one step with ``TPU.REMAT`` off and one with it on."""
-    import copy
-
     import torch
 
-    from simpledepthestimation_tpu_torch.parallel import make_train_step
     from simpledepthestimation_tpu_torch.solver import frozen_parameter_names
 
     cfg = sup_cfg("bts_r50.yaml")
@@ -1410,7 +1417,29 @@ def phase_bts_train_path(device):
         raise AssertionError(f"bts_train_path: {len(frozen)} frozen parameters, {len(moved)} of them moved "
                              f"(e.g. {moved[:3]}), {len(no_grad)} without a gradient")
 
-    # REMAT off and on from one saved state
+    remat = _remat_off_and_on(state, fixed, "silog_loss")
+    B, (H, W) = SMOKE_B, SUP_HW
+    emit({
+        "phase": "bts_train_path", "model": "BTS-R50 (resnet50_bts, BTS_SIZE 512, kitti focal scaling)",
+        "batch": B, "hw": [H, W], "compute_dtype": str(cfg.TPU.COMPUTE_DTYPE), "optimizer": str(cfg.SOLVER.OPT),
+        "frozen_parameters": len(frozen), "steps": records, "launches": launches,
+        "steady_step_ms": steady_ms, "steady_images_per_s": B / steady_ms * 1e3, "peak_mem_bytes": peak,
+        "depth_after": list(depth), "remat": remat,
+    })
+    _check_remat("bts_train_path", remat)
+    return launches
+
+
+def _remat_off_and_on(state, batch, loss_key):
+    """From one saved state, one step with ``TPU.REMAT`` off and one with it on:
+    the two steps' losses, ``grad_norm`` and running statistics compared, and
+    each step's peak memory, memory above the state and time."""
+    import copy
+
+    import torch
+
+    from simpledepthestimation_tpu_torch.parallel import make_train_step
+
     saved = (copy.deepcopy(state.model.state_dict()), copy.deepcopy(state.optimizer.state_dict()),
              state.scheduler.state_dict(), state.step)
     runs = {}
@@ -1424,7 +1453,7 @@ def phase_bts_train_path(device):
         base = torch.cuda.memory_allocated()
         start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         start.record()
-        metrics = make_train_step(state, grad_clip=0.0, remat=remat)(fixed)
+        metrics = make_train_step(state, grad_clip=0.0, remat=remat)(batch)
         stop.record()
         torch.cuda.synchronize()
         runs[remat] = ({k: v.item() for k, v in metrics.items()},
@@ -1432,30 +1461,27 @@ def phase_bts_train_path(device):
                        torch.cuda.max_memory_allocated(), torch.cuda.max_memory_allocated() - base,
                        start.elapsed_time(stop))
     (m0, s0, peak0, step0, ms0), (m1, s1, peak1, step1, ms1) = runs[False], runs[True]
-    loss_err = abs(m1["silog_loss"] - m0["silog_loss"]) / abs(m0["silog_loss"])
-    norm_err = abs(m1["grad_norm"] - m0["grad_norm"]) / abs(m0["grad_norm"])
-    stats_err = max(((s1[k] - s0[k]).abs().max() / s0[k].abs().max()).item() for k in s0)
-    stats_moved = max(((s0[k] - saved[0][k]).abs().max() / saved[0][k].abs().max()).item() for k in s0)
-    remat = {"loss_rel_err": loss_err, "grad_norm_rel_err": norm_err, "running_stats_rel_err": stats_err,
-             "running_stats_moved_by_the_step": stats_moved,
-             "limits": [REMAT_LOSS_RTOL, REMAT_GRAD_NORM_RTOL, REMAT_STATS_RTOL],
-             "peak_mem_bytes_off": peak0, "peak_mem_bytes_on": peak1,
-             "step_mem_above_state_bytes_off": step0, "step_mem_above_state_bytes_on": step1,
-             "step_ms_off": ms0, "step_ms_on": ms1,
-             "metrics_off": m0, "metrics_on": m1}
-    B, (H, W) = SMOKE_B, SUP_HW
-    emit({
-        "phase": "bts_train_path", "model": "BTS-R50 (resnet50_bts, BTS_SIZE 512, kitti focal scaling)",
-        "batch": B, "hw": [H, W], "compute_dtype": str(cfg.TPU.COMPUTE_DTYPE), "optimizer": str(cfg.SOLVER.OPT),
-        "frozen_parameters": len(frozen), "steps": records, "launches": launches,
-        "steady_step_ms": steady_ms, "steady_images_per_s": B / steady_ms * 1e3, "peak_mem_bytes": peak,
-        "depth_after": list(depth), "remat": remat,
-    })
-    if loss_err > REMAT_LOSS_RTOL or norm_err > REMAT_GRAD_NORM_RTOL or stats_err > REMAT_STATS_RTOL:
-        raise AssertionError("bts_train_path: one step with TPU.REMAT differs from one without it")
-    if not stats_moved > 0 or not peak1 < peak0:
-        raise AssertionError("bts_train_path: the REMAT step moved no statistic or did not lower the peak memory")
-    return launches
+    rec = {"loss_rel_err": abs(m1[loss_key] - m0[loss_key]) / abs(m0[loss_key]),
+           "grad_norm_rel_err": abs(m1["grad_norm"] - m0["grad_norm"]) / abs(m0["grad_norm"])}
+    if s0:
+        rec["running_stats_rel_err"] = max(((s1[k] - s0[k]).abs().max() / s0[k].abs().max()).item() for k in s0)
+        rec["running_stats_moved_by_the_step"] = max(
+            ((s0[k] - saved[0][k]).abs().max() / saved[0][k].abs().max()).item() for k in s0)
+    rec.update({"limits": [REMAT_LOSS_RTOL, REMAT_GRAD_NORM_RTOL, REMAT_STATS_RTOL],
+                "peak_mem_bytes_off": peak0, "peak_mem_bytes_on": peak1,
+                "step_mem_above_state_bytes_off": step0, "step_mem_above_state_bytes_on": step1,
+                "step_ms_off": ms0, "step_ms_on": ms1, "metrics_off": m0, "metrics_on": m1})
+    return rec
+
+
+def _check_remat(phase, rec):
+    """One step with TPU.REMAT gives the step without it (the running statistics
+    moved once, where there are any) at a lower peak memory."""
+    if (rec["loss_rel_err"] > REMAT_LOSS_RTOL or rec["grad_norm_rel_err"] > REMAT_GRAD_NORM_RTOL
+            or rec.get("running_stats_rel_err", 0.0) > REMAT_STATS_RTOL):
+        raise AssertionError(f"{phase}: one step with TPU.REMAT differs from one without it")
+    if not rec.get("running_stats_moved_by_the_step", 1.0) > 0 or not rec["peak_mem_bytes_on"] < rec["peak_mem_bytes_off"]:
+        raise AssertionError(f"{phase}: the REMAT step moved no statistic or did not lower the peak memory")
 
 
 def phase_supervised_cli_train_path(device):
@@ -1466,6 +1492,212 @@ def phase_supervised_cli_train_path(device):
         absent=KERNEL_NAMES,
         model_overrides=("MODEL.DEPTH_NET.NAME", "BtsModel", "MODEL.DEPTH_NET.ENCODER_NAME", "resnet50_bts",
                          "MODEL.DEPTH_NET.BTS_SIZE", 512, "MODEL.DATASET", "kitti", "LOG_PERIOD", 1))
+
+
+# --- PackNet01 on the MonoDepth2 step, and the rigid MotionLearning nets ---
+
+PACKNET_FIXED_STEPS, PACKNET_FRESH_STEPS = 4, 2
+PACKNET_AGREE_HW = (64, 128)  # PackNet packs five times: H and W multiples of 32
+# per step and scale, as MonoDepth2-R18's step (phase_train_path)
+PACKNET_PER_STEP = {"warp_bilinear_fwd": 4, "photometric_map_fwd": 8, "warp_bilinear_bwd_coords": 4,
+                    "photometric_map_bwd": 4, "warp_bilinear_bwd_image": 0}
+RIGID = ("MODEL.DEPTH_NET.NAME", "GoogleResNetv2", "MODEL.POSE_NET.NAME", "GooglePoseNet")
+RIGID_LOSSES = {"rgb_l1_loss", "ssim_loss", "rot_loss", "trans_loss", "smooth_loss"}
+# per step: the RGB-D warp (K1, K3 for its coordinates) and the cycle loss's warp (K1, K5 for its image)
+RIGID_PER_STEP = {"warp_bilinear_fwd": 2, "warp_bilinear_bwd_coords": 1, "warp_bilinear_bwd_image": 1,
+                  "photometric_map_fwd": 0, "photometric_map_bwd": 0}
+# PackNet in bfloat16, card vs CPU copy: some 40 bf16 convolutions of fan-in up to 2048x25 through
+# GroupNorms, so a rounding flip spreads and only a share of the depth pixels keeps the CPU copy's value
+# (tests/test_torch_packnet.py: the same against the JAX package). Measured on the card (NVIDIA H100 80GB
+# HBM3, 700 W): losses 5.1e-4, depth pixels on the CPU's value 46.9 %; limits 2e-3 and 15 %, BTS's
+PACKNET_BF16_LOSS_RTOL, PACKNET_BF16_SAME_SHARE = 2e-3, 0.15
+# cuDNN's float32 backward of the pose net's first block, on a batch whose pose gradient spans three
+# orders of magnitude between its samples (PackNet's random depth sits near its 0.05 floor, so one
+# sample's parallax is huge): 5.4e-2 (conv1's GroupNorm bias) and 3.9e-2 (conv1's kernel) of the
+# tensor's largest (measured on NVIDIA H100 80GB HBM3, 700 W; the same from run to run and with
+# cudnn.deterministic), while every other tensor agrees within GRAD_AGREE_RTOL. With cuDNN off (PyTorch's
+# own CUDA convolutions) the card's float32 gradient agrees with the CPU copy on every tensor (6.2e-6):
+# the phase checks that too, so that only cuDNN's algorithm is let off the per-tensor limit
+CUDNN_F32_POSE_CONV1 = ("pose_net.conv1.0.weight", "pose_net.conv1.1.bias")
+CUDNN_F32_POSE_CONV1_RTOL = 1e-1
+
+
+def packnet_cfg(extra=()):
+    from simpledepthestimation_tpu_torch.config import get_cfg
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    cfg = get_cfg()
+    cfg.merge_from_file(os.path.join(root, "projects", "MonoDepth2", "configs", "packnet_1a.yaml"))
+    cfg.merge_from_list(list(extra))
+    return cfg
+
+
+def phase_packnet_train_path(device):
+    """``projects/MonoDepth2/configs/packnet_1a.yaml`` as shipped: PackNet01 1A +
+    PoseNet, B=8 at 192x640, N=2, bf16, ``adam_multistep``: 4 steps on one batch
+    (the loss must fall), 2 fresh, 10 timed; then from a saved state one step
+    with ``TPU.REMAT`` off and one with it on."""
+    import torch
+
+    from simpledepthestimation_tpu_torch.parallel import create_train_state, make_eval_step, make_train_step
+
+    cfg = packnet_cfg()
+    B, (H, W), N = int(cfg.SOLVER.IMS_PER_BATCH), PLANES[0], int(cfg.MODEL.POSE_NET.NUM_CONTEXTS)
+    if (B, N) != (8, SMOKE_N):
+        raise AssertionError(f"packnet_1a.yaml gives B={B}, N={N}; expected 8, {SMOKE_N}")
+    torch.cuda.reset_peak_memory_stats()
+    state = create_train_state(cfg, generator=torch.Generator().manual_seed(0), steps_per_epoch=4)
+    emit_warm_start("PackNet01-1A", cfg, state, pretrained=False)
+    if next(state.model.parameters()).device.type != "cuda" or type(state.model.depth_net).__name__ != "PackNet01":
+        raise AssertionError("create_train_state did not place PackNet01 on the card")
+    step = make_train_step(state, grad_clip=float(cfg.SOLVER.GRAD_CLIP))
+    fixed = make_batch(700, B, H, W, N, device, smooth=True)
+    fresh = [make_batch(701 + i, B, H, W, N, device, smooth=True) for i in range(PACKNET_FRESH_STEPS)]
+    records, launches, steady_ms = _drive_train_step(
+        state, step, [fixed] * PACKNET_FIXED_STEPS + fresh, fresh, {k: (n, n) for k, n in PACKNET_PER_STEP.items()},
+        {"total_loss", "grad_norm", "rec_loss", "smooth_loss"}, exempt=ZERO_GRADIENT_BY_CONSTRUCTION)
+    peak = torch.cuda.max_memory_allocated()
+    first, last = records[0]["total_loss"], records[PACKNET_FIXED_STEPS - 1]["total_loss"]
+    if not last < first:
+        raise AssertionError(f"packnet_train_path: total_loss on the fixed batch did not fall: {first} -> {last}")
+    if any(p.dtype != torch.float32 for p in state.model.parameters()):
+        raise AssertionError("packnet_train_path: a parameter left float32")
+    depth = make_eval_step(state)(fixed)
+    lo, hi = depth.min().item(), depth.max().item()
+    if depth.shape != (B, 1, H, W) or not (torch.isfinite(depth).all() and lo > 0.0 and hi <= 80.0 * (1 + 1e-6)):
+        raise AssertionError(f"packnet_train_path: depth_pred is off: shape {tuple(depth.shape)}, min {lo}, max {hi}")
+    remat = _remat_off_and_on(state, fixed, "rec_loss")
+    emit({
+        "phase": "packnet_train_path", "model": "PackNet01-1A + PoseNet (packnet_1a.yaml)", "batch": B,
+        "hw": [H, W], "contexts": N, "compute_dtype": str(cfg.TPU.COMPUTE_DTYPE), "optimizer": str(cfg.SOLVER.OPT),
+        "parameters": sum(p.numel() for p in state.model.parameters()), "steps": records, "launches": launches,
+        "launches_per_step": PACKNET_PER_STEP, "steady_step_ms": steady_ms, "steady_images_per_s": B / steady_ms * 1e3,
+        "peak_mem_bytes": peak, "depth_after": [lo, hi], "remat": remat,
+    })
+    _check_remat("packnet_train_path", remat)
+    return launches
+
+
+def phase_cpu_agreement_packnet(device):
+    """PackNet01 on the card and on a CPU copy of the same weights, B=2 at 64x128:
+    in float32 1A's forward and one train step (losses, gradient per tensor and
+    global, one Adam update) and 1B's forward; in bfloat16 1A's loss pass and depth."""
+    import torch
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    f32 = ["TPU.COMPUTE_DTYPE", "float32"]
+    batch = make_batch(800, 2, *PACKNET_AGREE_HW, SMOKE_N, "cpu", smooth=True)
+    rec = {"phase": "cpu_agreement_packnet", "shape": [2, *PACKNET_AGREE_HW], "rtol": AGREE_RTOL}
+    for version in ("1A", "1B"):
+        d_card, d_cpu, l_card, l_cpu = _forward_both(packnet_cfg(f32 + ["MODEL.DEPTH_NET.VERSION", version]),
+                                                     batch, device)
+        rec[version] = {"depth_rel_err": ((d_card - d_cpu).abs() / d_cpu.abs()).max().item(),
+                        "loss_rel_err": {k: abs(l_card[k] - l_cpu[k]) / abs(l_cpu[k]) for k in l_cpu}}
+    d_card, d_cpu, l_card, l_cpu = _forward_both(packnet_cfg(), batch, device)
+    rel16 = (d_card - d_cpu).abs() / d_cpu.abs()
+    rec["bf16"] = {"loss_rel_err": {k: abs(l_card[k] - l_cpu[k]) / abs(l_cpu[k]) for k in l_cpu},
+                   "loss_rtol": PACKNET_BF16_LOSS_RTOL, "depth_rel_err_max": rel16.max().item(),
+                   "depth_rel_err_mean": rel16.mean().item(), "depth_rel_err_median": rel16.median().item(),
+                   "depth_same_share": (rel16 <= 1e-6).double().mean().item(),
+                   "same_share_min": PACKNET_BF16_SAME_SHARE}
+    emit(rec)
+    for version in ("1A", "1B"):
+        if rec[version]["depth_rel_err"] > AGREE_RTOL or max(rec[version]["loss_rel_err"].values()) > AGREE_RTOL:
+            raise AssertionError(f"cpu_agreement_packnet: the card's {version} forward disagrees with the CPU copy")
+    if (max(rec["bf16"]["loss_rel_err"].values()) > PACKNET_BF16_LOSS_RTOL
+            or rec["bf16"]["depth_same_share"] < PACKNET_BF16_SAME_SHARE or not torch.isfinite(d_card).all()):
+        raise AssertionError("cpu_agreement_packnet: the card's bfloat16 forward disagrees with the CPU copy")
+    launched = _agree_train_step("cpu_agreement_packnet_train_step", packnet_cfg(f32), batch, device,
+                                 grad_rtol={k: CUDNN_F32_POSE_CONV1_RTOL for k in CUDNN_F32_POSE_CONV1})
+    if launched != PACKNET_PER_STEP:
+        raise AssertionError(f"cpu_agreement_packnet: the card's step launched {launched}")
+
+    # the same gradient with cuDNN off (PyTorch's own CUDA convolutions): every tensor, the pose
+    # net's first block included, within GRAD_AGREE_RTOL, so that only cuDNN's float32 algorithm
+    # is let off its limit above, and the kernels and the rest of the card's step are not
+    from simpledepthestimation_tpu_torch.models import build_model
+
+    cfg = packnet_cfg(f32)
+    card = build_model(cfg, generator=torch.Generator().manual_seed(3))
+    cpu = build_model(cfg, device="cpu", generator=torch.Generator().manual_seed(4))
+    cpu.load_state_dict(card.state_dict())
+    torch.backends.cudnn.enabled = False
+    try:
+        sum(card({k: v.to(device) for k, v in batch.items()}, train=True).values()).backward()
+    finally:
+        torch.backends.cudnn.enabled = True
+    sum(cpu(batch, train=True).values()).backward()
+    g_max = max(p.grad.abs().max().item() for p in cpu.parameters())
+    errs = {k: (q.grad.cpu() - p.grad).abs().max().item()
+            / (g_max if k in ZERO_GRADIENT_BY_CONSTRUCTION else p.grad.abs().max().item())
+            for (k, p), q in zip(cpu.named_parameters(), card.parameters())}
+    worst = max(errs, key=errs.get)
+    emit({"phase": "cpu_agreement_packnet_grad_without_cudnn", "worst_grad": worst, "worst_grad_rel_err": errs[worst],
+          "grad_rtol": GRAD_AGREE_RTOL, "grad_rel_err_by_name": {k: errs[k] for k in CUDNN_F32_POSE_CONV1}})
+    if errs[worst] > GRAD_AGREE_RTOL:
+        raise AssertionError("cpu_agreement_packnet: the card's gradient without cuDNN disagrees with the CPU copy")
+
+
+def phase_motion_rigid_train_path(device):
+    """``projects/MotionLearning/configs/resnet18.yaml`` with GoogleResNetv2 and
+    GooglePoseNet, the rest as shipped (randLN at the end of its noise ramp,
+    clip_ste scales, ``18pt``), B=16 pairs at 128x416, bf16: 5 checked steps and 10
+    timed. A ResNet-18 weight file in reach makes the warm start meet a net with
+    no torchvision encoder: it must warn, load nothing and leave every weight as
+    the seed made it."""
+    import tempfile
+
+    import torch
+
+    from simpledepthestimation_tpu_torch.models import build_model
+    from simpledepthestimation_tpu_torch.models.resnet import ResNetEncoder
+    from simpledepthestimation_tpu_torch.parallel import create_train_state, make_eval_step, make_train_step
+
+    with tempfile.TemporaryDirectory(prefix="sde_rigid_") as tmp:
+        weights = os.path.join(tmp, "resnet18.pth")
+        torch.save(ResNetEncoder(18).encoder.state_dict(), weights)
+        cfg = motion_cfg([*RIGID, "MODEL.DEPTH_NET.PRETRAINED_WEIGHTS", weights])
+        B, (H, W) = int(cfg.SOLVER.IMS_PER_BATCH), MOTION_HW
+        torch.cuda.reset_peak_memory_stats()
+        state = create_train_state(cfg, generator=torch.Generator().manual_seed(0), steps_per_epoch=4)
+    emit_warm_start("MotionLearning rigid (GoogleResNetv2 + GooglePoseNet)", cfg, state)
+    seeded = build_model(cfg, generator=torch.Generator().manual_seed(0))
+    changed = [k for k, v in seeded.state_dict().items() if not torch.equal(v, state.model.state_dict()[k])]
+    if state.pretrained_weights is not None or changed:
+        raise AssertionError(f"the warm start of a net without a torchvision encoder loaded something: "
+                             f"{state.pretrained_weights}, {changed[:5]}")
+    del seeded
+    step = make_train_step(state, grad_clip=float(cfg.SOLVER.GRAD_CLIP), schedule_fn=lambda i: MOTION_SCHEDULE)
+    batches = [make_motion_batch(900 + i, B, H, W, device) for i in range(MOTION_CHECKED_STEPS)]
+    records, launches, steady_ms = _drive_train_step(
+        state, step, batches, batches, {k: (n, n) for k, n in RIGID_PER_STEP.items()},
+        RIGID_LOSSES | {"total_loss", "grad_norm"},
+        nonzero_grads=("depth_net.conv1.weight", "depth_net.decoder.out_conv.weight", "pose_net.pose_pred.weight",
+                       "pose_net.trans_scale", "pose_net.rot_scale"))
+    depth = make_eval_step(state)(batches[0])
+    lo, hi = depth.min().item(), depth.max().item()
+    if depth.shape != (B, 1, H, W) or not (torch.isfinite(depth).all() and lo > 0.0):
+        raise AssertionError(f"motion_rigid_train_path: depth_pred is off: shape {tuple(depth.shape)}, min {lo}")
+    emit({
+        "phase": "motion_rigid_train_path", "model": "MotionLearning rigid (GoogleResNetv2 randLN + GooglePoseNet)",
+        "batch": B, "hw": [H, W], "compute_dtype": str(cfg.TPU.COMPUTE_DTYPE), "optimizer": str(cfg.SOLVER.OPT),
+        "schedule": MOTION_SCHEDULE, "steps": records, "launches": launches, "launches_per_step": RIGID_PER_STEP,
+        "steady_step_ms": steady_ms, "steady_pairs_per_s": B / steady_ms * 1e3,
+        "peak_mem_bytes": torch.cuda.max_memory_allocated(), "depth_after": [lo, hi],
+    })
+    return launches
+
+
+def phase_cpu_agreement_motion_rigid(device):
+    """The rigid MotionLearning train step on the card and on a CPU copy, float32,
+    B=2 64x96, noise 0 (the two devices' generators differ)."""
+    cfg = motion_cfg([*RIGID, "TPU.COMPUTE_DTYPE", "float32"])
+    schedule = lambda i: {"noise_stddev": 0.0, "motion_weight": 1.0}  # noqa: E731
+    launched = _agree_train_step("cpu_agreement_motion_rigid_train_step", cfg, make_motion_batch(204, 2, 64, 96, "cpu"),
+                                 device, grad_clip=10.0, schedule_fn=schedule)
+    if launched != RIGID_PER_STEP:
+        raise AssertionError(f"the card's rigid step launched {launched}, expected {RIGID_PER_STEP}")
 
 
 def _grad_agreement(card, cpu):
@@ -1566,10 +1798,11 @@ def phase_cpu_agreement_bts(device):
     if loss16_err > BTS_BF16_LOSS_RTOL or same16 < BTS_BF16_SAME_SHARE or not torch.isfinite(d16_card).all():
         raise AssertionError("cpu_agreement_bts: the card's bfloat16 forward disagrees with the CPU copy")
 
-def _agree_train_step(phase, cfg, batch_cpu, device, grad_clip=0.0, schedule_fn=None):
+def _agree_train_step(phase, cfg, batch_cpu, device, grad_clip=0.0, schedule_fn=None, grad_rtol=None):
     """One float32 train step on the card (kernels, cuDNN without TF32) and on a
     CPU copy of the same weights (plain versions): every loss, the global
-    gradient norm, each parameter's gradient and the parameters after the update.
+    gradient norm, each parameter's gradient (within ``GRAD_AGREE_RTOL``, or
+    the limit ``grad_rtol`` names for it) and the parameters after the update.
     Returns the launches of the card's step."""
     import torch
 
@@ -1595,7 +1828,8 @@ def _agree_train_step(phase, cfg, batch_cpu, device, grad_clip=0.0, schedule_fn=
     grad_err = {k: (g_card[k] - g_cpu[k]).abs().max().item()
                 / max(g_max if k in ZERO_GRADIENT_BY_CONSTRUCTION else g_cpu[k].abs().max().item(), 1e-30)
                 for k in g_cpu}
-    worst = max(grad_err, key=grad_err.get)
+    limit = {k: (grad_rtol or {}).get(k, GRAD_AGREE_RTOL) for k in grad_err}
+    worst = max(grad_err, key=lambda k: grad_err[k] / limit[k])
     zero = [k for k, g in g_cpu.items() if k not in ZERO_GRADIENT_BY_CONSTRUCTION and not g.abs().max().item() > 0]
     # after the update: Adam's first step moves every parameter by the rate times
     # g/(|g| + eps), so where |g| is rounding noise the two sides may move apart by
@@ -1609,9 +1843,11 @@ def _agree_train_step(phase, cfg, batch_cpu, device, grad_clip=0.0, schedule_fn=
     emit({"phase": phase, "shape": [int(batch_cpu["img"].shape[0]), *batch_cpu["img"].shape[2:]],
           "loss_rel_err": loss_err, "grad_norm_rel_err": norm_err, "worst_grad": worst,
           "worst_grad_rel_err": grad_err[worst], "grad_rtol": GRAD_AGREE_RTOL, "zero_grads_cpu": zero,
+          **({"grad_rtol_by_name": grad_rtol, "grad_rel_err_by_name": {k: grad_err[k] for k in grad_rtol}}
+             if grad_rtol else {}),
           "update_rel_l2_err": update_err, "update_max_apart": max_apart, "lr": lr,
           "launches_on_card": launched, "metrics_card": m_card, "metrics_cpu": m_cpu})
-    if max(loss_err.values()) > AGREE_RTOL or norm_err > GRAD_NORM_RTOL or grad_err[worst] > GRAD_AGREE_RTOL:
+    if max(loss_err.values()) > AGREE_RTOL or norm_err > GRAD_NORM_RTOL or grad_err[worst] > limit[worst]:
         raise AssertionError("the card's losses or parameter gradients disagree with the CPU copy of the model")
     if not m_cpu["grad_norm"] > 0 or zero:
         raise AssertionError("a gradient of the CPU copy is identically zero: the comparison says nothing")
@@ -1631,8 +1867,10 @@ def phase_cpu_agreement_motion(device):
         raise AssertionError(f"the card's step did not run K3 and K5 once each: {launched}")
 
 
-def _profile(fn, label: str, top: int, wall_iters: int = 10):
-    """Device time of one call of ``fn`` by kernel name, beside its wall time."""
+def _profile(fn, label: str, top: int, wall_iters: int = 10, ops=()):
+    """Device time of one call of ``fn`` by kernel name, beside its wall time;
+    with ``ops`` (operator names), also those operators' device time by input
+    shape (their kernels included)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -1644,7 +1882,7 @@ def _profile(fn, label: str, top: int, wall_iters: int = 10):
         fn()
     torch.cuda.synchronize()
     wall_ms = (time.perf_counter() - t0) * 1e3 / wall_iters
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA], record_shapes=bool(ops)) as prof:
         fn()
         torch.cuda.synchronize()
     # kernel rows only: operator rows repeat the time of the kernels they launch
@@ -1653,20 +1891,34 @@ def _profile(fn, label: str, top: int, wall_iters: int = 10):
             if e.device_type == torch.autograd.DeviceType.CUDA and not e.key.startswith("Optimizer.")]
     rows = sorted(rows, key=lambda r: -r[2])
     device_ms = sum(r[2] for r in rows)
-    emit({
+    rec = {
         "phase": "profile", "call": label, "wall_ms": wall_ms, "device_busy_ms": device_ms,
         "device_idle_share": max(0.0, 1.0 - device_ms / wall_ms),
         "device_kernel_launches": sum(r[1] for r in rows),
         "top": [{"name": k[:80], "count": c, "ms": ms} for k, c, ms in rows[:top]],
         "hand_written": [{"name": k[:80], "count": c, "ms": ms} for k, c, ms in rows
                          if "warp_bilinear" in k or "photometric_map" in k],
-    })
+    }
+    if ops:
+        # per operator and rank of its first input (a 3D convolution's is 5): the total, and the 3 largest shapes
+        groups = {}
+        for e in prof.key_averages(group_by_input_shape=True):
+            if e.key in ops:
+                rank = len(e.input_shapes[0]) if e.input_shapes and e.input_shapes[0] else 0
+                groups.setdefault(f"{e.key} {rank}-D", []).append((str(e.input_shapes)[:120], e.count,
+                                                                  e.device_time_total / 1e3))
+        rec["ops"] = {name: {"count": sum(r[1] for r in rows), "ms": sum(r[2] for r in rows),
+                             "largest": [{"shapes": sh, "count": c, "ms": ms}
+                                         for sh, c, ms in sorted(rows, key=lambda r: -r[2])[:3]]}
+                      for name, rows in sorted(groups.items())}
+    emit(rec)
 
 
 def profile_paths(device, top: int = 14):
     """Optional (``--profile``): where the device time of one steady-state
-    ``train=False`` forward, one loss pass and one train step of MonoDepth2, and
-    one MotionLearning train step goes, by kernel name, and how much of the wall
+    ``train=False`` forward, one loss pass and one train step of MonoDepth2, one
+    MotionLearning train step, one PackNet train step and one rigid
+    MotionLearning train step goes, by kernel name, and how much of the wall
     time the device is busy."""
     import torch
 
@@ -1691,6 +1943,21 @@ def profile_paths(device, top: int = 14):
     mstep = make_train_step(mstate, grad_clip=float(cfg.SOLVER.GRAD_CLIP), schedule_fn=lambda i: MOTION_SCHEDULE)
     mbatch = make_motion_batch(400, SMOKE_B, *MOTION_HW, device)
     _profile(lambda: mstep(mbatch), "motion_train_step", top)
+    del mstate, mstep
+
+    cfg = packnet_cfg()
+    pstate = create_train_state(cfg, generator=torch.Generator().manual_seed(0), steps_per_epoch=4)
+    pstep = make_train_step(pstate)
+    pbatch = make_batch(700, int(cfg.SOLVER.IMS_PER_BATCH), *PLANES[0], SMOKE_N, device, smooth=True)
+    _profile(lambda: pstep(pbatch), "packnet_train_step", top,
+             ops=("aten::cudnn_convolution", "aten::convolution_backward", "aten::native_group_norm",
+                  "aten::native_group_norm_backward", "aten::elu", "aten::elu_backward"))
+    del pstate, pstep
+
+    cfg = motion_cfg(RIGID)
+    rstate = create_train_state(cfg, generator=torch.Generator().manual_seed(0), steps_per_epoch=4)
+    rstep = make_train_step(rstate, grad_clip=float(cfg.SOLVER.GRAD_CLIP), schedule_fn=lambda i: MOTION_SCHEDULE)
+    _profile(lambda: rstep(mbatch), "motion_rigid_train_step", top)
 
 
 def _forward_both(cfg, batch_cpu, device):
@@ -1783,9 +2050,13 @@ def main() -> int:
     # the Supervised family launches none of K1-K5 (each phase checks it)
     for phase in (phase_supervised_train_path, phase_bts_train_path, phase_supervised_cli_train_path):
         phase(device)
+    by_path["packnet_train_path"] = phase_packnet_train_path(device)
+    by_path["motion_rigid_train_path"] = phase_motion_rigid_train_path(device)
     phase_cpu_agreement(device)
     phase_cpu_agreement_motion(device)
     phase_cpu_agreement_bts(device)
+    phase_cpu_agreement_packnet(device)
+    phase_cpu_agreement_motion_rigid(device)
     if "--profile" in sys.argv[1:]:
         profile_paths(device)
 
@@ -1794,15 +2065,17 @@ def main() -> int:
     kernels = []
     for key, name, source, replaces, paths in (
         ("warp", "warp_bilinear_fwd", csrc + "warp.cu", pallas + "pallas_warp.py:755",
-         ("main_path", "train_path", "motion_train_path", "cli_train_path", "motion_cli_train_path")),
+         ("main_path", "train_path", "motion_train_path", "cli_train_path", "motion_cli_train_path",
+          "packnet_train_path", "motion_rigid_train_path")),
         ("photo", "photometric_map_fwd", csrc + "photometric.cu", pallas + "pallas_photometric.py:243",
-         ("main_path", "train_path", "cli_train_path")),
+         ("main_path", "train_path", "cli_train_path", "packnet_train_path")),
         ("warp_bwd", "warp_bilinear_bwd_coords", csrc + "warp.cu", pallas + "pallas_warp.py:802",
-         ("train_path", "motion_train_path", "cli_train_path", "motion_cli_train_path")),
+         ("train_path", "motion_train_path", "cli_train_path", "motion_cli_train_path", "packnet_train_path",
+          "motion_rigid_train_path")),
         ("photo_bwd", "photometric_map_bwd", csrc + "photometric.cu", pallas + "pallas_photometric.py:171",
-         ("train_path", "cli_train_path")),
+         ("train_path", "cli_train_path", "packnet_train_path")),
         ("warp_bwd_image", "warp_bilinear_bwd_image", csrc + "warp.cu", pallas + "pallas_warp.py:1119",
-         ("motion_train_path", "motion_cli_train_path")),
+         ("motion_train_path", "motion_cli_train_path", "motion_rigid_train_path")),
     ):
         counts = {path: by_path[path][name] for path in paths}
         if min(counts.values()) < 1:

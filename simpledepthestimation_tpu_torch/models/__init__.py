@@ -11,6 +11,7 @@ from .build import (
 from . import depth_nets  # noqa: F401
 from . import bts  # noqa: F401
 from . import google_resnet  # noqa: F401
+from . import packnet  # noqa: F401
 from . import pose_nets  # noqa: F401
 from . import meta_arch  # noqa: F401
 from . import motion_meta_arch  # noqa: F401

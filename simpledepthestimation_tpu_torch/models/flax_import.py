@@ -10,13 +10,16 @@ package's ``models/torch_import.py`` (conv kernels HWIO → OIHW; norm
 parameter the tree lacks, or a shape that differs raises ``ValueError``.
 
 Covers the meta-architectures of this package: ``depth_net`` = DepthResNet,
-GoogleResNet (BatchNorm: ``bn`` + ``batch_stats``; randLN: ``rln``) or BtsModel
-with any encoder of its zoo (ResNet, ResNeXt, DenseNet, MobileNetV2; the
-inverse of ``convert_bts`` and of ``convert_torch_densenet`` /
-``convert_torch_mobilenetv2``), optional ``pose_net`` = PoseNet or
-GoogleMotionNet; the family is read from the tree's own entries. The names produced are those that the JAX package's
-``models/torch_import.py`` converters read, so ``convert_meta_arch`` of a
-``state_dict`` gives these trees back. Imports nothing of the JAX package.
+GoogleResNet or GoogleResNetv2 (BatchNorm: ``bn`` + ``batch_stats``; randLN:
+``rln``), PackNet01 (the inverse of ``convert_packnet``; 3D kernels DHWIO →
+``[O,1,D,H,W]``) or BtsModel with any encoder of its zoo (ResNet, ResNeXt,
+DenseNet, MobileNetV2; the inverse of ``convert_bts`` and of
+``convert_torch_densenet`` / ``convert_torch_mobilenetv2``), optional
+``pose_net`` = PoseNet, GooglePoseNet or GoogleMotionNet; the family is read
+from the tree's own entries. The names produced are those that the JAX
+package's ``models/torch_import.py`` converters read, so ``convert_meta_arch``
+of a ``state_dict`` gives these trees back (GoogleResNetv2 has no converter
+there; its names are the port's). Imports nothing of the JAX package.
 """
 
 from __future__ import annotations
@@ -283,6 +286,47 @@ def _google_decoder(sd, prefix: str, params: Tree) -> None:
             raise ValueError(f"unknown decoder entry {name!r}")
 
 
+def _packnet(sd, prefix: str, params: Tree) -> None:
+    """PackNet01: ``pre_calc``, ``conv1``, ``iconv{i}`` = Conv2D {conv, gn} →
+    ``.conv_base`` / ``.normalize``; ``conv{i}`` = {``res{b}``: {conv1, conv2,
+    conv3, gn}} → ``conv{i}.{b}.…``; ``pack{i}`` / ``unpack{i}`` = {conv,
+    conv3d_kernel, conv3d_bias} → ``.conv.…`` / ``.conv3d``; ``disp{i}`` =
+    {conv} → ``disp{i}_layer.conv1``."""
+
+    def conv2d(key: str, node: Tree) -> None:
+        if set(node) != {"conv", "gn"}:
+            raise ValueError(f"unknown leaves {sorted(node)} under {key}")
+        _put_conv(sd, f"{key}.conv_base", node["conv"])
+        _put_affine(sd, f"{key}.normalize", node["gn"])
+
+    for name, node in params.items():
+        key = f"{prefix}{name}"
+        if name in ("pre_calc", "conv1") or re.fullmatch(r"iconv\d", name):
+            conv2d(key, node)
+        elif re.fullmatch(r"conv\d", name):
+            for res, block in node.items():
+                m = re.fullmatch(r"res(\d+)", res)
+                if not m or set(block) != {"conv1", "conv2", "conv3", "gn"}:
+                    raise ValueError(f"unknown entry {res!r} {sorted(block)} under {key}")
+                bkey = f"{key}.{m.group(1)}"
+                conv2d(f"{bkey}.conv1", block["conv1"])
+                conv2d(f"{bkey}.conv2", block["conv2"])
+                _put_conv(sd, f"{bkey}.conv3", block["conv3"])
+                _put_affine(sd, f"{bkey}.normalize", block["gn"])
+        elif re.fullmatch(r"(un)?pack\d", name):
+            if set(node) != {"conv", "conv3d_kernel", "conv3d_bias"}:
+                raise ValueError(f"unknown leaves {sorted(node)} under {key}")
+            conv2d(f"{key}.conv", node["conv"])
+            sd[f"{key}.conv3d.weight"] = np.transpose(np.asarray(node["conv3d_kernel"]), (4, 3, 0, 1, 2))
+            sd[f"{key}.conv3d.bias"] = np.asarray(node["conv3d_bias"])
+        elif re.fullmatch(r"disp\d", name):
+            if set(node) != {"conv"}:
+                raise ValueError(f"unknown leaves {sorted(node)} under {key}")
+            _put_conv(sd, f"{key}_layer.conv1", node["conv"])
+        else:
+            raise ValueError(f"unknown PackNet entry {name!r}")
+
+
 def _conv_gn_relu(sd, key: str, node: Tree) -> None:
     """ConvGNReLU {conv[, gn]} → ``{key}.0`` / ``{key}.1``."""
     extra = set(node) - {"conv", "gn"}
@@ -291,6 +335,20 @@ def _conv_gn_relu(sd, key: str, node: Tree) -> None:
     _put_conv(sd, f"{key}.0", node["conv"])
     if "gn" in node:
         _put_affine(sd, f"{key}.1", node["gn"])
+
+
+def _google_posenet(sd, prefix: str, params: Tree) -> None:
+    """GooglePoseNet: ``conv1..7`` (ConvGNReLU), ``pose_pred`` with bias, and the
+    optional 0-d ``rot_scale`` / ``trans_scale``."""
+    for name, node in params.items():
+        if re.fullmatch(r"conv[1-7]", name):
+            _conv_gn_relu(sd, f"{prefix}{name}", node)
+        elif name == "pose_pred":
+            _put_conv(sd, f"{prefix}{name}", node)
+        elif name in ("trans_scale", "rot_scale"):
+            sd[f"{prefix}{name}"] = np.asarray(node).reshape(())
+        else:
+            raise ValueError(f"unknown pose-net entry {name!r}")
 
 
 def _motion_net(sd, prefix: str, params: Tree) -> None:
@@ -324,11 +382,22 @@ def flax_to_state_dict(params: Tree, batch_stats: Optional[Tree] = None) -> Dict
     sd: Dict[str, np.ndarray] = {}
     dn_p = params.get("depth_net", {})
     dn_s = batch_stats.get("depth_net", {})
+    # GoogleResNet names its norms n{c}; GoogleResNetv2 keeps its trunk in the net itself
+    google = "n1" in dn_p.get("encoder", {}) or "n1" in dn_p
+    if "pre_calc" in dn_p:
+        if dn_s:
+            raise ValueError("PackNet01 has no batch statistics")
+        _packnet(sd, "depth_net.", dn_p)
+        dn_p = {}
+    elif "n1" in dn_p:
+        _google_encoder(sd, "depth_net.", {k: v for k, v in dn_p.items() if k != "decoder"},
+                        {k: v for k, v in dn_s.items() if k != "decoder"})
+        dn_p = {k: v for k, v in dn_p.items() if k == "decoder"}
+        dn_s = {k: v for k, v in dn_s.items() if k == "decoder"}
     extra = (set(dn_p) | set(dn_s)) - {"encoder", "decoder"}
     if extra:
         raise ValueError(f"unknown depth_net entries {sorted(extra)}")
     enc_p = dn_p.get("encoder", {})
-    google = "n1" in enc_p  # GoogleResNet names its norms n{c}
     if "encoder" in dn_p:
         if google:
             encoder = _google_encoder
@@ -349,6 +418,8 @@ def flax_to_state_dict(params: Tree, batch_stats: Optional[Tree] = None) -> Dict
     if "pose_net" in params:
         if "conv8" in params["pose_net"]:
             _motion_net(sd, "pose_net.", params["pose_net"])
+        elif "pose_pred" in params["pose_net"]:
+            _google_posenet(sd, "pose_net.", params["pose_net"])
         else:
             _posenet(sd, "pose_net.", params["pose_net"])
     if batch_stats.get("pose_net"):

@@ -21,7 +21,15 @@ the compute dtype; the norms return float32, so all encoder features are
 float32; the decoder's upsample of a bfloat16 activation runs in bfloat16, as
 in the JAX module.
 
-``GoogleResNetv2`` and its ``MaxpoolShortcutBlock`` are not ported yet.
+``GoogleResNetv2``: a ResNet-18 trunk trained from scratch whose blocks
+(``MaxpoolShortcutBlock``) take a parameter-free shortcut (a 2×2 max pool on a
+stride, ``ceil_mode`` so that an odd plane keeps its last row and column, as
+flax's ``"SAME"`` pads them with −∞; zero channels on a width change), and the
+same decoder. Its trunk sits in the net itself (``conv1``, ``bn1``,
+``layer{L}.{b}.conv{c}`` / ``.bn{c}``), as the JAX module has no ``encoder``
+submodule: no torchvision encoder to warm-start, and ``"18pt"`` warns and
+loads nothing (``models/pretrained.py``). No checkpoint converter exists for
+it in the JAX package; ``models/flax_import.py`` reads its Flax tree.
 """
 
 from __future__ import annotations
@@ -257,6 +265,91 @@ class GoogleResNet(nn.Module):
         if flip is not None:
             image = flip_images(image, flip)
         features = self.encoder(image, train, noise_stddev, generator)
+        depth = self.decoder(features)
+        if flip is not None:
+            depth = flip_images(depth, flip)
+        if self.upsample_depth:
+            depth = resize_img(depth, image.shape[2:], mode="nearest")
+        return [depth]
+
+
+class MaxpoolShortcutBlock(nn.Module):
+    """Basic block whose shortcut is a ``stride×stride`` max pool (ceil mode) and a
+    zero channel pad instead of a strided 1×1 conv."""
+    remat_unit = True  # TPU.REMAT recomputes it in the backward (parallel/train_step.py)
+
+    def __init__(self, in_ch: int, planes: int, stride: int = 1, norm: Optional[str] = "BN",
+                 compute_dtype: torch.dtype = torch.float32):
+        super().__init__()
+        dt = compute_dtype
+        self.stride = stride
+        self.planes = planes
+        self.conv1 = Conv2d(in_ch, planes, 3, stride=stride, padding=1, bias=False, compute_dtype=dt)
+        self.bn1 = _Norm(norm, planes)
+        self.conv2 = Conv2d(planes, planes, 3, padding=1, bias=False, compute_dtype=dt)
+        self.bn2 = _Norm(norm, planes)
+
+    def forward(self, x, train: bool = False, stddev: Stddev = 0.0, generator=None):
+        out = F.relu(self.bn1(self.conv1(x), train, stddev, generator))
+        out = self.bn2(self.conv2(out), train, stddev, generator)
+        identity = x
+        if self.stride != 1:
+            identity = F.max_pool2d(identity, self.stride, self.stride, ceil_mode=True)
+        if identity.shape[1] != self.planes:
+            identity = F.pad(identity, (0, 0, 0, 0, 0, self.planes - identity.shape[1]))
+        return F.relu(out + identity)
+
+
+@DEPTH_NET_REGISTRY.register()
+class GoogleResNetv2(nn.Module):
+    """ResNet-18 of :class:`MaxpoolShortcutBlock` (two a stage, strides 1, 2, 2, 2)
+    + :class:`GoogleDepthDecoder`: one softplus depth map."""
+
+    num_ch_enc = (64, 64, 128, 256, 512)
+
+    def __init__(self, norm: Optional[str] = "BN", learn_scale: bool = False, upsample_depth: bool = False,
+                 compute_dtype: torch.dtype = torch.float32):
+        super().__init__()
+        dt = compute_dtype
+        self.norm = norm
+        self.upsample_depth = upsample_depth
+        self.conv1 = Conv2d(3, 64, 7, stride=2, padding=3, bias=False, compute_dtype=dt)
+        self.bn1 = _Norm(norm, 64)
+        in_ch = 64
+        for li, planes in enumerate(self.num_ch_enc[1:], start=1):
+            stride = 1 if li == 1 else 2
+            setattr(self, f"layer{li}", nn.ModuleList([
+                MaxpoolShortcutBlock(in_ch if b == 0 else planes, planes, stride if b == 0 else 1, norm, dt)
+                for b in range(2)]))
+            in_ch = planes
+        self.decoder = GoogleDepthDecoder(self.num_ch_enc, learn_scale=learn_scale, compute_dtype=dt)
+
+    @classmethod
+    def from_cfg(cls, cfg):
+        dn = cfg.MODEL.DEPTH_NET
+        if int(str(dn.ENCODER_NAME)[:2]) != 18:
+            raise ValueError("GoogleResNetv2 supports 18 layers only")
+        return cls(
+            norm=dn.get("NORM", "BN"),
+            learn_scale=bool(dn.get("LEARN_SCALE", False)),
+            upsample_depth=bool(dn.get("UPSAMPLE_DEPTH", False)),
+            compute_dtype=compute_dtype(cfg),
+        )
+
+    def forward(self, image: torch.Tensor, flip: Optional[torch.Tensor] = None, train: bool = False,
+                intrinsics: Optional[torch.Tensor] = None, noise_stddev: Stddev = 0.0,
+                generator: Optional[torch.Generator] = None) -> List[torch.Tensor]:
+        """image [B,3,H,W] normalized → ``[depth [B,1,H,W] float32]``.
+        ``intrinsics`` is accepted for interface uniformity and ignored."""
+        if flip is not None:
+            image = flip_images(image, flip)
+        x = F.relu(self.bn1(self.conv1(image), train, noise_stddev, generator))
+        features = [x]
+        x = max_pool_3x3_s2(x)
+        for li in range(1, 5):
+            for block in getattr(self, f"layer{li}"):
+                x = block(x, train, noise_stddev, generator)
+            features.append(x)
         depth = self.decoder(features)
         if flip is not None:
             depth = flip_images(depth, flip)

@@ -8,8 +8,11 @@ the occlusion-masked RGB-D consistency (L1 + depth-proximity-weighted SSIM),
 followed by the motion cycle consistency, motion smoothness and L0.5 sparsity
 on the normalized residual motion, and the depth smoothness.
 
-The pose net is a ``GoogleMotionNet`` (the rigid-only ``GooglePoseNet`` is not
-ported yet). The per-step schedule of the training loop
+The pose net is a ``GoogleMotionNet`` (pose and a dense residual translation
+field) or the rigid-only ``GooglePoseNet``: then the translation is the pose's
+own, broadcast over the image, there is no motion mask, and there are no
+motion smoothness and sparsity losses; the cycle loss runs on the broadcast
+translations all the same. The per-step schedule of the training loop
 (:func:`make_schedule_fn`) arrives in the batch: ``noise_stddev`` (the
 RandLayerNorm noise ramp) and ``motion_weight`` (the motion burn-in), 0-d
 tensors or floats; missing keys mean 0 and 1. The noise itself is drawn from
@@ -37,6 +40,7 @@ import torch.nn as nn
 from . import losses as L
 from .build import META_ARCH_REGISTRY, build_depth_net, build_pose_net
 from .meta_arch import normalize_image
+from .pose_nets import GoogleMotionNet
 from ..geometry.camera import resize_img, resize_img_avgpool, scale_intrinsics, view_synthesis
 from ..ops.pool import max_pool
 
@@ -167,10 +171,14 @@ class MotionLearningModel(nn.Module):
             pin2 = torch.cat([pin2, depth2], dim=1)
         pose_input = torch.cat([torch.cat([pin1, pin2], dim=1), torch.cat([pin2, pin1], dim=1)], dim=0)
 
-        pose, motion = self.pose_net(pose_input, motion_weight=motion_weight, train=train)
+        if isinstance(self.pose_net, GoogleMotionNet):
+            pose, motion = self.pose_net(pose_input, motion_weight=motion_weight, train=train)
+        else:
+            pose, motion = self.pose_net(pose_input, train=train), None
         pose_1to2, pose_2to1 = pose[:B], pose[B:]
-        motion_1to2, motion_2to1 = motion[:B], motion[B:]
-        if self.with_mask:
+        if motion is not None:
+            motion_1to2, motion_2to1 = motion[:B], motion[B:]
+        if motion is not None and self.with_mask:
             mask1 = (batch["mask"] > 0).float()
             mask2 = (batch["ctx_mask"][:, 0] > 0).float()
             if self.mask_dilation > 0:
@@ -196,16 +204,22 @@ class MotionLearningModel(nn.Module):
             rd2 = resize_img_avgpool(depth2, (H, W))
 
             R_1to2, R_2to1 = pose_1to2[:, :3, :3], pose_2to1[:, :3, :3]
-            rm_1to2 = resize_img_avgpool(motion_1to2, (H, W))
-            rm_2to1 = resize_img_avgpool(motion_2to1, (H, W))
-            t_1to2 = pose_1to2[:, :3, 3, None, None] + rm_1to2  # [B,3,H,W]
-            t_2to1 = pose_2to1[:, :3, 3, None, None] + rm_2to1
+            if motion is not None:
+                rm_1to2 = resize_img_avgpool(motion_1to2, (H, W))
+                rm_2to1 = resize_img_avgpool(motion_2to1, (H, W))
+                t_1to2 = pose_1to2[:, :3, 3, None, None] + rm_1to2  # [B,3,H,W]
+                t_2to1 = pose_2to1[:, :3, 3, None, None] + rm_2to1
+            else:
+                rm_1to2 = rm_2to1 = None
+                t_1to2 = pose_1to2[:, :3, 3, None, None].expand(B, 3, H, W)
+                t_2to1 = pose_2to1[:, :3, 3, None, None].expand(B, 3, H, W)
 
             if self.scale_normalize:
                 depth_mean = torch.cat([rd1, rd2], dim=0).mean()
                 d1n, d2n = rd1 / depth_mean, rd2 / depth_mean
                 t_1to2, t_2to1 = t_1to2 / depth_mean, t_2to1 / depth_mean
-                rm_1to2, rm_2to1 = rm_1to2 / depth_mean, rm_2to1 / depth_mean
+                if motion is not None:
+                    rm_1to2, rm_2to1 = rm_1to2 / depth_mean, rm_2to1 / depth_mean
             else:
                 d1n, d2n = rd1, rd2
 
@@ -230,16 +244,17 @@ class MotionLearningModel(nn.Module):
                 add("rot_loss", 2.0 * rot_loss * scale_w * self.rot_cycle_loss_w)
                 add("trans_loss", 2.0 * trans_loss * scale_w * self.trans_cycle_loss_w)
 
-            t1_scale = (t_1to2**2).mean(dim=(1, 2, 3), keepdim=True) * 3.0
-            t2_scale = (t_2to1**2).mean(dim=(1, 2, 3), keepdim=True) * 3.0
-            m1n = rm_1to2 / torch.sqrt(t1_scale + 1e-12)
-            m2n = rm_2to1 / torch.sqrt(t2_scale + 1e-12)
-            if self.motion_smooth_loss_w > 0.0:
-                add("motion_smooth_loss",
-                    (L.motion_smoothness_loss(m1n) + L.motion_smoothness_loss(m2n)) * scale_w * self.motion_smooth_loss_w)
-            if self.motion_sparsity_loss_w > 0.0:
-                add("motion_sparsity_loss",
-                    (L.motion_sparsity_loss(m1n) + L.motion_sparsity_loss(m2n)) * scale_w * self.motion_sparsity_loss_w)
+            if motion is not None:
+                t1_scale = (t_1to2**2).mean(dim=(1, 2, 3), keepdim=True) * 3.0
+                t2_scale = (t_2to1**2).mean(dim=(1, 2, 3), keepdim=True) * 3.0
+                m1n = rm_1to2 / torch.sqrt(t1_scale + 1e-12)
+                m2n = rm_2to1 / torch.sqrt(t2_scale + 1e-12)
+                if self.motion_smooth_loss_w > 0.0:
+                    add("motion_smooth_loss", (L.motion_smoothness_loss(m1n) + L.motion_smoothness_loss(m2n))
+                        * scale_w * self.motion_smooth_loss_w)
+                if self.motion_sparsity_loss_w > 0.0:
+                    add("motion_sparsity_loss", (L.motion_sparsity_loss(m1n) + L.motion_sparsity_loss(m2n))
+                        * scale_w * self.motion_sparsity_loss_w)
 
             if self.sup_loss_w > 0.0:
                 g1 = resize_img(batch["depth"], (H, W), mode="nearest")

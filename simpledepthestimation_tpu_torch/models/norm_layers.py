@@ -38,11 +38,8 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 
-class Conv2d(nn.Conv2d):
-    """``nn.Conv2d`` computing in ``compute_dtype`` with float32 parameters.
-    ``xavier=True`` marks a kernel that ``models.build.init_weights`` draws
-    Xavier-uniform (where the JAX module names ``xavier_uniform``) instead of
-    N(0, 1/fan_in)."""
+class _CastingConv:
+    """The compute-dtype rule of :class:`Conv2d` and :class:`Conv3d`."""
 
     def __init__(self, *args, compute_dtype: torch.dtype = torch.float32, xavier: bool = False, **kwargs):
         super().__init__(*args, **kwargs)
@@ -54,7 +51,19 @@ class Conv2d(nn.Conv2d):
         if self.bias is None or dt == torch.float32:
             bias = None if self.bias is None else self.bias.to(dt)
             return self._conv_forward(x.to(dt), self.weight.to(dt), bias)
-        return self._conv_forward(x.to(dt), self.weight.to(dt), None) + self.bias.to(dt)[:, None, None]
+        out = self._conv_forward(x.to(dt), self.weight.to(dt), None)
+        return out + self.bias.to(dt).view(-1, *([1] * (out.dim() - 2)))
+
+
+class Conv2d(_CastingConv, nn.Conv2d):
+    """``nn.Conv2d`` computing in ``compute_dtype`` with float32 parameters.
+    ``xavier=True`` marks a kernel that ``models.build.init_weights`` draws
+    Xavier-uniform (where the JAX module names ``xavier_uniform``) instead of
+    N(0, 1/fan_in)."""
+
+
+class Conv3d(_CastingConv, nn.Conv3d):
+    """``nn.Conv3d`` under :class:`Conv2d`'s rule (PackNet's packed convolution)."""
 
 
 _frozen = threading.local()

@@ -5,11 +5,12 @@ Counterparts of the classes of these names in
 
 - ``PoseNet``: SfmLearner-style 7-conv stack → global mean → 0.01× 6-DoF per
   context. The mean over the feature map and ``pose_vec2mat`` run in float32.
+- ``GooglePoseNet``: two-frame RGB(-D) rigid pose, seven stride-2 conv stages
+  (GroupNorm optional), the float32 spatial mean, a 1×1 float32 head with bias
+  and learned translation and rotation scales.
 - ``GoogleMotionNet``: two-frame RGB-D pose with learned rotation and
   translation scales, plus a dense residual translation field refined from a
   1×1 seed through every level of the trunk and then the input itself.
-
-``GooglePoseNet`` (the rigid-only variant) is not ported yet.
 """
 
 from __future__ import annotations
@@ -66,6 +67,53 @@ def _constrained_scale(raw: torch.Tensor, constraint: str, minval: float = 0.001
     if constraint == "softplus":
         return F.softplus(raw) * 0.01 + minval
     raise ValueError(constraint)
+
+
+@POSE_NET_REGISTRY.register()
+class GooglePoseNet(nn.Module):
+    """Rigid pose of the second frame from the first: ``forward(pose_input
+    [B,C,H,W])`` → [B,4,4] float32. The head's outputs are ordered (translation,
+    rotation) and scaled by ``trans_scale`` / ``rot_scale`` (learned, 0.01 at
+    init, through ``scale_constraint``) or by 0.01 when ``learn_scale`` is off."""
+
+    def __init__(self, in_channels: int = 8, group_norm: bool = False, learn_scale: bool = True,
+                 scale_constraint: str = "clip", compute_dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.learn_scale = learn_scale
+        self.scale_constraint = scale_constraint
+        ch = in_channels
+        for i, (out_ch, k) in enumerate(zip((16, 32, 64, 128, 256, 256, 256), (7, 5, 3, 3, 3, 3, 3)), start=1):
+            setattr(self, f"conv{i}", ConvGNReLU(ch, out_ch, k, 2, compute_dtype, group_norm))
+            ch = out_ch
+        self.pose_pred = Conv2d(ch, 6, 1, xavier=True)
+        if learn_scale:
+            self.rot_scale = nn.Parameter(torch.tensor(0.01))
+            self.trans_scale = nn.Parameter(torch.tensor(0.01))
+            self.param_init = {"rot_scale": 0.01, "trans_scale": 0.01}
+
+    @classmethod
+    def from_cfg(cls, cfg):
+        pn = cfg.MODEL.POSE_NET
+        return cls(
+            in_channels=8 if bool(pn.get("USE_DEPTH", True)) else 6,
+            group_norm=bool(pn.get("GROUP_NORM", False)),
+            learn_scale=bool(pn.get("LEARN_SCALE", True)),
+            scale_constraint=str(pn.get("SCALE_CONSTRAIN", "clip")),
+            compute_dtype=compute_dtype(cfg),
+        )
+
+    def forward(self, pose_input: torch.Tensor, train: bool = False) -> torch.Tensor:
+        x = pose_input
+        for i in range(1, 8):
+            x = getattr(self, f"conv{i}")(x)
+        pose = self.pose_pred(x.float().mean(dim=(2, 3), keepdim=True))[:, :, 0, 0]
+        trans, rot = pose[:, :3], pose[:, 3:]
+        if self.learn_scale:
+            trans = trans * _constrained_scale(self.trans_scale, self.scale_constraint)
+            rot = rot * _constrained_scale(self.rot_scale, self.scale_constraint)
+        else:
+            trans, rot = trans * 0.01, rot * 0.01
+        return pose_vec2mat(torch.cat([trans, rot], dim=-1))
 
 
 class MotionRefiner(nn.Module):

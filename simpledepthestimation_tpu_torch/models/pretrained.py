@@ -128,8 +128,11 @@ def maybe_load_pretrained_encoder(cfg, model: nn.Module) -> Optional[str]:
     ``MODEL.DEPTH_NET.ENCODER_NAME`` asks for them (``"18pt"`` → ResNet-18,
     ``"50pt"`` → ResNet-50, a name of ``BTS_CONVERTIBLE`` → its torchvision
     file), from :func:`find_pretrained_file`; otherwise leave the model as it
-    is. A ``*_bts`` name outside ``BTS_CONVERTIBLE`` warns and loads nothing.
-    Returns the weight file found, or ``None``."""
+    is. A ``*_bts`` name outside ``BTS_CONVERTIBLE`` warns and loads nothing;
+    so does a depth net with no torchvision-layout encoder (``GoogleResNetv2``
+    accepts ``"18pt"``), as the JAX package's ``engine.runtime`` does on its
+    layout mismatch. Returns the weight file found, or ``None`` (none found,
+    or no such encoder)."""
     dn = cfg.MODEL.get("DEPTH_NET", {})
     version = str(dn.get("ENCODER_NAME", ""))
     if version.endswith("pt") and version[:2].isdigit():
@@ -142,5 +145,12 @@ def maybe_load_pretrained_encoder(cfg, model: nn.Module) -> Optional[str]:
             logger.warning(f"No pretrained conversion for BTS encoder {version}; random init")
         return None
     weights_file = find_pretrained_file(num_layers, str(dn.get("PRETRAINED_WEIGHTS", "")), filename=filename)
-    load_pretrained_encoder(model.depth_net.encoder, num_layers, weights_file)
+    encoder = getattr(model.depth_net, "encoder", None)
+    if weights_file and not isinstance(getattr(encoder, "encoder", None), nn.Module):
+        # a depth net without a torchvision-layout encoder (GoogleResNetv2, PackNet01) accepts
+        # the name, as the JAX package does, and trains from its initialisation
+        logger.warning(f"Pretrained encoder injection skipped (layout mismatch): "
+                       f"{type(model.depth_net).__name__} has no torchvision-layout encoder")
+        return None
+    load_pretrained_encoder(encoder, num_layers, weights_file)
     return weights_file
