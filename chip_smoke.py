@@ -33,7 +33,15 @@ cli_train_path and motion_cli_train_path (the training entry points
 ``projects/{MonoDepth2,MotionLearning}/train_torch.py`` run in this process at
 B=16 on synthetic data: two epochs with checkpoints and evaluations,
 ``--resume`` to a third, ``--eval``; their training log goes to standard
-error), supervised_train_path and bts_train_path (``projects/Supervised/configs/
+error), default_trainer_path (``tools/train_net_torch.py``: ``DefaultTrainer`` with
+its hooks on MonoDepth2-R18 at B=16 192x640, two epochs, PreciseBN over 2 batches
+at each epoch's end, a ``torch.profiler`` trace of one iteration, ``--eval``),
+async_vis_path (``projects/MonoDepth2/train_torch.py`` with ``TEST.ASYNC`` and
+``VIS_PERIOD 2``: epoch 0's asynchronous evaluation equal to a synchronous one of
+its checkpoint, the panels; the loop's step time with ``TEST.ASYNC`` off and on),
+predictor_export_path (``DefaultPredictor`` on 375x1242 frames, ``export_inference``
+and ``load_exported`` against eager, ``tools/demo_torch.py`` on two PNG frames),
+supervised_train_path and bts_train_path (``projects/Supervised/configs/
 {resnet18,bts_r50}.yaml`` as shipped; neither launches K1–K5, checked),
 supervised_cli_train_path (``projects/Supervised/train_torch.py`` as the two
 above, with ``bts_r50.yaml``'s model), packnet_train_path (``packnet_1a.yaml``
@@ -1278,6 +1286,335 @@ def phase_motion_cli_train_path(device):
         absent=("photometric_map_fwd", "photometric_map_bwd"))
 
 
+# --- the hook-driven trainer, the asynchronous evaluation and the panels, inference and export ---
+
+MONO_PER_STEP = {"warp_bilinear_fwd": 4, "photometric_map_fwd": 8, "warp_bilinear_bwd_coords": 4,
+                 "photometric_map_bwd": 4, "warp_bilinear_bwd_image": 0}
+# a PreciseBN forward computes the MonoDepth2 loss without its backward: a validation-loss pass
+PRECISE_BN_PER_BATCH = {"warp_bilinear_fwd": 4, "photometric_map_fwd": 8, "warp_bilinear_bwd_coords": 0,
+                        "photometric_map_bwd": 0, "warp_bilinear_bwd_image": 0}
+PRECISE_BN_ITERS = 2
+PROFILE_ITER = 3
+VIS_PERIOD = 2
+EXPORT_RTOL = 1e-6  # exported program against eager on the card: largest |Δ| over the largest depth
+PREDICTOR_FRAME = (375, 1242)  # a KITTI raw frame
+
+
+def _tool(name: str):
+    import importlib.util
+
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tools", f"{name}_torch.py")
+    spec = importlib.util.spec_from_file_location(f"{name}_torch_tool", path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+def _mono_cli_argv(out: str, extra=()):
+    """``projects/MonoDepth2/configs/synthetic_quick.yaml`` overridden to the shipped
+    model and batch (``18pt``, B=16, 192x640, bf16 as the yaml has it): two epochs
+    of 6 steps, a checkpoint and an evaluation each, a row for every step."""
+    h, w = PLANES[0]
+    root = os.path.dirname(os.path.abspath(__file__))
+    return ["--cfg", os.path.join(root, "projects", "MonoDepth2", "configs", "synthetic_quick.yaml"),
+            "MODEL.DEPTH_NET.ENCODER_NAME", "18pt", "SOLVER.IMS_PER_BATCH", SMOKE_B,
+            "DATASETS.TRAIN.IMG_HEIGHT", h, "DATASETS.TRAIN.IMG_WIDTH", w,
+            "DATASETS.TEST.IMG_HEIGHT", h, "DATASETS.TEST.IMG_WIDTH", w,
+            "DATASETS.TRAIN.LENGTH", CLI_TRAIN_LENGTH, "DATASETS.TEST.LENGTH", CLI_TEST_LENGTH,
+            "SOLVER.MAX_EPOCHS", CLI_EPOCHS, "SOLVER.CHECKPOINT_PERIOD", 1, "TEST.EVAL_PERIOD", 1,
+            "LOG_PERIOD", 1, "OUTPUT_DIR", out, *extra]
+
+
+def _expected_launches(steps: int, precise_bn_batches: int = 0) -> dict:
+    return {k: MONO_PER_STEP[k] * steps + PRECISE_BN_PER_BATCH[k] * precise_bn_batches for k in MONO_PER_STEP}
+
+
+def phase_default_trainer_path(device):
+    """``tools/train_net_torch.py``'s ``main`` in this process: ``DefaultTrainer``
+    with its hooks, PreciseBN over 2 batches at each epoch's end, a
+    ``torch.profiler`` trace of one iteration, then ``--eval``. Checked: a step row
+    for every iteration with finite losses, two evaluation rows, both checkpoints,
+    the trace, that the epoch-0 checkpoint holds PreciseBN's statistics (recomputed
+    from it on the same two batches), that ``--eval`` gives the last evaluation row
+    exactly, and the exact launches of K1-K4 (steps x 4/8/4/4 + PreciseBN batches
+    x 4/8/0/0; K5 never)."""
+    import contextlib
+    import shutil
+    import tempfile
+
+    import torch
+
+    from simpledepthestimation_tpu_torch.data import build_train_loader
+    from simpledepthestimation_tpu_torch.engine import assemble_cfg, default_argument_parser, restore_inference_state
+    from simpledepthestimation_tpu_torch.parallel import compute_precise_bn_stats
+
+    out = tempfile.mkdtemp(prefix="sde_hook_")
+    try:
+        argv = [str(a) for a in _mono_cli_argv(out, (
+            "TEST.PRECISE_BN.ENABLED", "True", "TEST.PRECISE_BN.NUM_ITER", PRECISE_BN_ITERS,
+            "TPU.PROFILE_ITERS", f"({PROFILE_ITER},)"))]
+        run_dir = os.path.join(out, "MonoDepth2_synthetic_quick")
+        steps_per_epoch = CLI_TRAIN_LENGTH // SMOKE_B
+        n_steps = CLI_EPOCHS * steps_per_epoch
+        tool = _tool("train_net")
+
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(sys.stderr):
+            trainer = tool.main(argv)
+        train_s = time.perf_counter() - t0
+        launches = read_launch_counts()
+        if trainer.device.type != "cuda" or next(trainer.model.parameters()).device.type != "cuda":
+            raise AssertionError("default_trainer_path: the model did not train on the card")
+        del trainer
+        want = _expected_launches(n_steps, CLI_EPOCHS * PRECISE_BN_ITERS)
+        if launches != want:
+            raise AssertionError(f"default_trainer_path: launches {launches}, expected {want}")
+
+        rows = _metric_rows(run_dir)
+        evals = _check_cli_rows(rows, range(n_steps), CLI_EPOCHS, "default_trainer_path")
+        if [r["iteration"] for r in evals] != [steps_per_epoch - 1, n_steps]:
+            raise AssertionError(f"default_trainer_path: evaluation rows at {[r['iteration'] for r in evals]}")
+        ckpts = sorted(f for f in os.listdir(run_dir) if f.startswith("model_"))
+        if ckpts != [f"model_{e:04d}.pth" for e in range(CLI_EPOCHS)]:
+            raise AssertionError(f"default_trainer_path: checkpoints {ckpts}")
+        trace = os.path.join(run_dir, f"profiler-trace-iter{PROFILE_ITER}", "trace.json")
+        if not os.path.isfile(trace) or os.path.getsize(trace) == 0:
+            raise AssertionError(f"default_trainer_path: no profiler trace at {trace}")
+        with open(trace) as f:
+            trace_events = json.load(f).get("traceEvents", [])
+        kernel_events = sum(1 for e in trace_events if e.get("cat") == "kernel")
+
+        with contextlib.redirect_stdout(sys.stderr):
+            results = tool.main(["--eval"] + argv)
+        got = {k: results["kitti evaluator"][k] for k in CLI_EVAL_KEYS}
+        last = {k: evals[-1][f"kitti evaluator/{k}"] for k in CLI_EVAL_KEYS}
+        if got != last:
+            raise AssertionError(f"default_trainer_path: --eval gave {got}, the last evaluation row {last}")
+
+        # the epoch-0 checkpoint carries PreciseBN's statistics: recomputed from its own weights
+        # on the two batches the hook read (the loader at epoch 0), they come out the same
+        cfg = assemble_cfg(default_argument_parser().parse_args(
+            argv + ["MODEL.WEIGHTS", os.path.join(run_dir, "model_0000.pth")]))
+        state, _ = restore_inference_state(cfg, device)
+        saved = {k: v.clone() for k, v in state.model.state_dict().items() if k.endswith(("running_mean", "running_var"))}
+        loader = build_train_loader(cfg, seed=cfg.SEED, pin_memory=True)
+        loader.set_epoch(0)
+        source = iter(loader)
+        try:
+            batches = [{k: v.to(device) for k, v in b.items() if isinstance(v, torch.Tensor)}
+                       for _, b in zip(range(PRECISE_BN_ITERS), source)]
+        finally:
+            source.close()
+        compute_precise_bn_stats(state, batches)
+        recomputed = state.model.state_dict()
+        precise_err = max(float((recomputed[k] - v).abs().max() / v.abs().max()) for k, v in saved.items())
+        if precise_err > 1e-5:
+            raise AssertionError(f"default_trainer_path: the epoch-0 checkpoint's statistics are {precise_err} "
+                                 "off PreciseBN's, recomputed from it")
+        del state, batches
+        torch.cuda.empty_cache()
+        emit({
+            "phase": "default_trainer_path", "model": "MonoDepth2-R18", "entry_point": "tools/train_net_torch.py",
+            "batch": SMOKE_B, "hw": list(PLANES[0]), "epochs": CLI_EPOCHS, "steps": n_steps,
+            "precise_bn_batches": CLI_EPOCHS * PRECISE_BN_ITERS, "launches": launches, "checkpoints": ckpts,
+            "profiler_trace": os.path.relpath(trace, out), "trace_kernel_events": kernel_events,
+            "precise_bn_recomputed_max_rel_err": precise_err,
+            "median_step_wall_s": _median([r["time"] for r in rows if "time" in r]),
+            "train_run_s": train_s, "eval": got,
+        })
+        return launches
+    finally:
+        shutil.rmtree(out, ignore_errors=True)
+
+
+def phase_async_vis_path(device):
+    """``projects/MonoDepth2/train_torch.py`` with ``TEST.ASYNC True`` and
+    ``VIS_PERIOD 2`` for two epochs. Checked: epoch 0's evaluation row equals a
+    synchronous ``do_test`` of ``model_0000.pth`` exactly (the snapshot was not
+    overwritten by epoch 1's updates), the panels (6 of ``train/depth_pred`` and
+    6 of ``train/image``, [192, 640, 3] uint8), no image left in the storage at
+    the end, and the launches (12 steps x 4/8/4/4). Then the same run with
+    ``TEST.ASYNC`` off, off and on again (the host's pace drifts within a call,
+    so the two settings take turns): each run's wall time and median loop step,
+    printed (not gated)."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from simpledepthestimation_tpu_torch.engine import assemble_cfg, default_argument_parser, do_test
+    from simpledepthestimation_tpu_torch.engine import restore_inference_state, runtime
+    from simpledepthestimation_tpu_torch.utils.events import EventStorage
+
+    class RecordingStorage(EventStorage):
+        made = []
+
+        def __init__(self, *args, **kwargs):
+            super().__init__(*args, **kwargs)
+            self.images = []
+            RecordingStorage.made.append(self)
+
+        def put_image(self, img_name, img):
+            self.images.append((img_name, self.iter, list(np.shape(img)), str(np.asarray(img).dtype)))
+            super().put_image(img_name, img)
+
+    steps_per_epoch = CLI_TRAIN_LENGTH // SMOKE_B
+    n_steps = CLI_EPOCHS * steps_per_epoch
+    out = tempfile.mkdtemp(prefix="sde_async_")
+    original = runtime.EventStorage
+    runtime.EventStorage = RecordingStorage
+    try:
+        timing = {"on": [], "off": []}
+        for i, async_eval in enumerate((True, False, False, True)):
+            argv = _mono_cli_argv(os.path.join(out, str(i)), ("TEST.ASYNC", async_eval, "VIS_PERIOD", VIS_PERIOD))
+            reset_launch_counts()
+            t0 = time.perf_counter()
+            _cli("MonoDepth2", argv)
+            run_s = time.perf_counter() - t0
+            counts = read_launch_counts()
+            run_dir = os.path.join(out, str(i), "MonoDepth2_synthetic_quick")
+            rows = _metric_rows(run_dir)
+            steps = [r for r in rows if "total_loss" in r]
+            timing["on" if async_eval else "off"].append({
+                "run_s": run_s, "median_step_wall_s": _median([r["time"] for r in steps]),
+                "median_epoch1_step_wall_s": _median([r["time"] for r in steps if r["iteration"] >= steps_per_epoch]),
+            })
+            if i == 0:  # the checked run
+                launches, checked_rows, checked_dir, cfg_argv = counts, rows, run_dir, argv
+            else:  # a run for the times only: its checkpoints are not read
+                shutil.rmtree(os.path.join(out, str(i)), ignore_errors=True)
+        if launches != _expected_launches(n_steps):
+            raise AssertionError(f"async_vis_path: launches {launches}, expected {_expected_launches(n_steps)}")
+
+        evals = _check_cli_rows(checked_rows, range(n_steps), CLI_EPOCHS, "async_vis_path")
+        stamps = [r["iteration"] for r in evals]
+        if stamps != [n_steps, n_steps + 1]:  # the JAX package's max(at_iter, storage.iter + 1, last + 1)
+            raise AssertionError(f"async_vis_path: evaluation rows stamped {stamps}")
+        cfg = assemble_cfg(default_argument_parser().parse_args(
+            [str(a) for a in cfg_argv] + ["MODEL.WEIGHTS", os.path.join(checked_dir, "model_0000.pth")]))
+        state, _ = restore_inference_state(cfg, device)
+        sync = do_test(cfg, state=state)["kitti evaluator"]
+        epoch0 = {k: evals[0][f"kitti evaluator/{k}"] for k in CLI_EVAL_KEYS}
+        if {k: sync[k] for k in CLI_EVAL_KEYS} != epoch0:
+            raise AssertionError(f"async_vis_path: epoch 0's asynchronous row {epoch0} is not the synchronous "
+                                 f"evaluation of model_0000.pth {sync}")
+        del state
+
+        storage = RecordingStorage.made[0]
+        h, w = PLANES[0]
+        want = [(name, it, [h, w, 3], "uint8") for it in range(VIS_PERIOD, n_steps + 1, VIS_PERIOD)
+                for name in ("train/depth_pred", "train/image")]
+        if storage.images != want:
+            raise AssertionError(f"async_vis_path: panels {storage.images}, expected {want}")
+        if storage._vis_data or storage._histograms:
+            raise AssertionError(f"async_vis_path: {len(storage._vis_data)} images left in the storage")
+        torch.cuda.empty_cache()
+        emit({
+            "phase": "async_vis_path", "model": "MonoDepth2-R18", "entry_point": "projects/MonoDepth2/train_torch.py",
+            "batch": SMOKE_B, "hw": [h, w], "epochs": CLI_EPOCHS, "steps": n_steps, "launches": launches,
+            "eval_stamps": stamps, "epoch0_eval": epoch0, "panels": len(storage.images),
+            "async_on": timing["on"], "async_off": timing["off"],
+        })
+        return launches
+    finally:
+        runtime.EventStorage = original
+        shutil.rmtree(out, ignore_errors=True)
+
+
+def phase_predictor_export_path(device):
+    """MonoDepth2-R18 as shipped (``resnet18.yaml``, bf16, its test preprocess:
+    ``Resize`` to 192x640), one checkpoint of its seeded weights, then:
+    ``DefaultPredictor`` on two 375x1242 uint8 frames (depth of the frame's
+    shape), ``export_inference`` at B=1 192x640 and ``load_exported`` (depth
+    within 1e-6 of eager's), ``tools/demo_torch.py`` on the two frames as PNG
+    files (two panels), and the ms per call of eager and exported inference
+    (CUDA events) and of the predictor (host clock, preprocessing included)."""
+    import contextlib
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from simpledepthestimation_tpu_torch.data.png import read_png, write_png
+    from simpledepthestimation_tpu_torch.engine import Checkpointer, DefaultPredictor, export_inference, load_exported
+    from simpledepthestimation_tpu_torch.engine.export import InferenceModule
+    from simpledepthestimation_tpu_torch.parallel import create_train_state
+
+    out = tempfile.mkdtemp(prefix="sde_infer_")
+    try:
+        cfg = smoke_cfg(["OUTPUT_DIR", out])
+        state = create_train_state(cfg, device=device, generator=torch.Generator().manual_seed(0))
+        Checkpointer(out).save(0, state)
+        model = state.model
+        del state
+
+        rng = np.random.RandomState(0)
+        frames = [rng.randint(0, 256, PREDICTOR_FRAME + (3,)).astype(np.uint8) for _ in range(2)]
+        predictor = DefaultPredictor(cfg, device=device)
+        depth = predictor(frames[0])  # loads the checkpoint
+        walls = []
+        for frame in frames * 3:
+            t0 = time.perf_counter()
+            depth = predictor(frame)
+            walls.append((time.perf_counter() - t0) * 1e3)
+        if depth.shape != PREDICTOR_FRAME or not np.isfinite(depth).all() or not (depth > 0).all():
+            raise AssertionError(f"predictor_export_path: depth {depth.shape}, finite {np.isfinite(depth).all()}")
+
+        h, w = PLANES[0]
+        path = os.path.join(out, "model.pt2")
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(sys.stderr):
+            export_inference(cfg, path, batch=1, shape=(h, w), device=device)
+        export_s = time.perf_counter() - t0
+        with open(path + ".json") as f:
+            meta = json.load(f)
+        if meta["input"]["shape"] != [1, 3, h, w] or meta["platforms"] != ["cuda"]:
+            raise AssertionError(f"predictor_export_path: sidecar {meta}")
+        served = load_exported(path)
+        eager = InferenceModule(predictor.state.model)
+        img = torch.from_numpy(rng.rand(1, 3, h, w).astype(np.float32)).to(device)
+        with torch.no_grad():
+            want = eager(img)
+        got = served(img)
+        err = float((got - want).abs().max() / want.abs().max())
+        if got.shape != want.shape or not torch.isfinite(got).all() or err > EXPORT_RTOL:
+            raise AssertionError(f"predictor_export_path: exported depth {err} off eager's (limit {EXPORT_RTOL})")
+
+        def eager_call():
+            with torch.no_grad():
+                eager(img)
+
+        eager_ms, exported_ms = cuda_ms(eager_call), cuda_ms(lambda: served(img))
+
+        frame_dir = os.path.join(out, "frames")
+        os.makedirs(frame_dir)
+        for i, frame in enumerate(frames):
+            write_png(os.path.join(frame_dir, f"{i}.png"), frame)
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(sys.stderr):
+            written = _tool("demo").main(["--cfg", os.path.join(os.path.dirname(os.path.abspath(__file__)), "projects",
+                                                                "MonoDepth2", "configs", "resnet18.yaml"),
+                                          "--input", frame_dir, "--output", os.path.join(out, "demo"),
+                                          "MODEL.DEPTH_NET.ENCODER_NAME", "18pt", "MODEL.WEIGHTS", out])
+        demo_s = time.perf_counter() - t0
+        panels = [read_png(p) for p in written]
+        if len(panels) != 2 or any(p.shape != (2 * PREDICTOR_FRAME[0], PREDICTOR_FRAME[1], 3) for p in panels):
+            raise AssertionError(f"predictor_export_path: demo panels {[p.shape for p in panels]}")
+        del model, predictor, eager, served
+        torch.cuda.empty_cache()
+        emit({
+            "phase": "predictor_export_path", "model": "MonoDepth2-R18 (resnet18.yaml, bf16)",
+            "predictor_frame": list(PREDICTOR_FRAME), "predictor_ms_median": _median(walls),
+            "export_hw": [h, w], "export_s": export_s, "export_max_rel_err": err,
+            "eager_ms": eager_ms, "exported_ms": exported_ms, "demo_panels": len(panels), "demo_run_s": demo_s,
+        })
+    finally:
+        shutil.rmtree(out, ignore_errors=True)
+
+
 # --- the Supervised family (no hand-written kernel on its path) ---
 
 SUP_HW = (352, 704)  # projects/Supervised/configs/Base.yaml: RandomCrop IMG_H, IMG_W
@@ -2046,7 +2383,10 @@ def main() -> int:
     by_path = {"main_path": phase_main_path(device), "train_path": phase_train_path(device),
                "motion_train_path": phase_motion_train_path(device),
                "cli_train_path": phase_cli_train_path(device),
-               "motion_cli_train_path": phase_motion_cli_train_path(device)}
+               "motion_cli_train_path": phase_motion_cli_train_path(device),
+               "default_trainer_path": phase_default_trainer_path(device),
+               "async_vis_path": phase_async_vis_path(device)}
+    phase_predictor_export_path(device)
     # the Supervised family launches none of K1-K5 (each phase checks it)
     for phase in (phase_supervised_train_path, phase_bts_train_path, phase_supervised_cli_train_path):
         phase(device)
@@ -2066,14 +2406,15 @@ def main() -> int:
     for key, name, source, replaces, paths in (
         ("warp", "warp_bilinear_fwd", csrc + "warp.cu", pallas + "pallas_warp.py:755",
          ("main_path", "train_path", "motion_train_path", "cli_train_path", "motion_cli_train_path",
-          "packnet_train_path", "motion_rigid_train_path")),
+          "default_trainer_path", "async_vis_path", "packnet_train_path", "motion_rigid_train_path")),
         ("photo", "photometric_map_fwd", csrc + "photometric.cu", pallas + "pallas_photometric.py:243",
-         ("main_path", "train_path", "cli_train_path", "packnet_train_path")),
+         ("main_path", "train_path", "cli_train_path", "default_trainer_path", "async_vis_path",
+          "packnet_train_path")),
         ("warp_bwd", "warp_bilinear_bwd_coords", csrc + "warp.cu", pallas + "pallas_warp.py:802",
-         ("train_path", "motion_train_path", "cli_train_path", "motion_cli_train_path", "packnet_train_path",
-          "motion_rigid_train_path")),
+         ("train_path", "motion_train_path", "cli_train_path", "motion_cli_train_path", "default_trainer_path",
+          "async_vis_path", "packnet_train_path", "motion_rigid_train_path")),
         ("photo_bwd", "photometric_map_bwd", csrc + "photometric.cu", pallas + "pallas_photometric.py:171",
-         ("train_path", "cli_train_path", "packnet_train_path")),
+         ("train_path", "cli_train_path", "default_trainer_path", "async_vis_path", "packnet_train_path")),
         ("warp_bwd_image", "warp_bilinear_bwd_image", csrc + "warp.cu", pallas + "pallas_warp.py:1119",
          ("motion_train_path", "motion_cli_train_path", "motion_rigid_train_path")),
     ):

@@ -13,19 +13,31 @@ ahead of the step (:func:`device_prefetch`). The step returns 0-d device
 tensors; the loop reads them at most 8 steps late and at each ``LOG_PERIOD``
 (every step with ``PARITY.STRICT``), and raises there on a non-finite loss.
 
+``VIS_PERIOD``: every that many steps the trained model's depth of the
+batch's first frame goes to the storage as a magma panel
+(``train/depth_pred``) beside the frame (``train/image``, HWC uint8).
+``TEST.ASYNC``: each epoch-end evaluation runs on one worker thread, on a copy
+of the model taken after the epoch's checkpoint, while the next epoch trains;
+at most one is in flight, and its row is logged from the loop's thread.
+
 Not in this package yet, and refused with ``NotImplementedError`` where a
-config asks for them: ``TEST.ASYNC`` and ``VIS_PERIOD`` (``ROADMAP.md`` A16b)
-and several processes (A17).
+config asks for it: training in several processes (``ROADMAP.md`` A17).
 """
 
 from __future__ import annotations
 
 import collections
+import contextlib
+import copy
+import dataclasses
+import itertools
 import logging
 import math
 import time
+from concurrent.futures import Future, ThreadPoolExecutor
 from typing import Callable, Dict, Iterator, Optional, Tuple, Union
 
+import numpy as np
 import torch
 
 from ..data import build_test_loader, build_train_loader
@@ -34,7 +46,7 @@ from ..models.build import build_model, resolve_device
 from ..parallel.train_step import TrainState, create_train_state, make_eval_step, make_train_step
 from ..solver.build import build_optimizer
 from ..utils import comm
-from ..utils.events import EventStorage
+from ..utils.events import EventStorage, write_all
 from .checkpoint import Checkpointer, PeriodicCheckpointer, load_weights
 from .defaults import default_writers
 
@@ -47,10 +59,6 @@ Copy = Optional[Tuple[torch.cuda.Event, torch.cuda.Event]]
 def check_supported(cfg) -> None:
     """Raise for what a config may ask of the JAX package's runtime that this
     one does not do yet, rather than ignore it."""
-    if bool(cfg.TEST.get("ASYNC", False)):
-        raise NotImplementedError("TEST.ASYNC (evaluation overlapped with training) is not ported yet: ROADMAP.md A16b")
-    if int(cfg.get("VIS_PERIOD", 0)) > 0:
-        raise NotImplementedError("VIS_PERIOD (depth panels to tensorboard) is not ported yet: ROADMAP.md A16b")
     if comm.get_world_size() > 1:
         raise NotImplementedError("training in several processes is not ported yet: ROADMAP.md A17")
 
@@ -155,6 +163,35 @@ def do_test(cfg, state: Optional[TrainState] = None, eval_step=None, device: Dev
     return inference_on_dataset(eval_fn, loader, evaluators)
 
 
+def _snapshot(state: TrainState) -> Tuple[TrainState, Optional[torch.cuda.Event]]:
+    """A copy of ``state`` with its own model (parameters and buffers copied on
+    the current stream) for an evaluation that runs while training goes on,
+    and on the card an event recorded after the copy."""
+    snapshot = dataclasses.replace(state, model=copy.deepcopy(state.model))
+    device = next(state.model.parameters()).device
+    if device.type != "cuda":
+        return snapshot, None
+    ready = torch.cuda.Event()
+    ready.record(torch.cuda.current_stream(device))
+    return snapshot, ready
+
+
+def _evaluate_snapshot(cfg, snapshot: TrainState, ready: Optional[torch.cuda.Event]) -> Dict:
+    """``do_test`` of a :func:`_snapshot`, for a worker thread: on the card on a
+    stream of its own, which first waits for the copy. The snapshot's tensors
+    were allocated on the training stream, so each is recorded on this one:
+    their memory goes back to the training stream only after the work queued
+    here has run. Returns the results; the storage is the loop's alone."""
+    if ready is None:
+        return do_test(cfg, state=snapshot)
+    stream = torch.cuda.Stream(device=next(snapshot.model.parameters()).device)
+    with torch.cuda.stream(stream):
+        stream.wait_event(ready)
+        for t in itertools.chain(snapshot.model.parameters(), snapshot.model.buffers()):
+            t.record_stream(stream)
+        return do_test(cfg, state=snapshot)
+
+
 def do_train(
     cfg,
     resume: bool = False,
@@ -193,7 +230,13 @@ def do_train(
     writers = default_writers(cfg.OUTPUT_DIR, max_iter) if comm.is_main_process() else []
     log_period = int(cfg.LOG_PERIOD)
     eval_period = int(cfg.TEST.EVAL_PERIOD)
-    eval_step = make_eval_step(state) if eval_period > 0 else None
+    vis_period = int(cfg.get("VIS_PERIOD", 0))
+    eval_step = make_eval_step(state)  # the evaluations' and the panels'
+    # one process only (check_supported): two threads issuing collectives could interleave
+    async_eval = bool(cfg.TEST.get("ASYNC", False)) and eval_period > 0
+    eval_pool = ThreadPoolExecutor(max_workers=1, thread_name_prefix="async-eval") if async_eval else None
+    pending_eval: Optional[Tuple[int, Future]] = None  # (step at submission, future)
+    eval_log_iter = -1  # the last iteration an asynchronous evaluation row was logged at
     lr_schedule = state.scheduler.schedules[0]
     # PARITY.STRICT: read and check every step's loss at once, as the reference does
     strict_parity = bool(cfg.get("PARITY", {}).get("STRICT", False))
@@ -206,8 +249,22 @@ def do_train(
             storage.put_scalars(**flat, smoothing_hint=False)
             storage.iter = cur
 
+    def join_pending_eval(storage):
+        """Wait for the evaluation in flight and log its row at an iteration
+        above every one written so far (the JSON writer skips an iteration at
+        or below its last), then write at once, so that a later evaluation
+        cannot overwrite the row before it is written."""
+        nonlocal pending_eval, eval_log_iter
+        if pending_eval is None:
+            return
+        at_iter, future = pending_eval
+        pending_eval = None
+        eval_log_iter = max(at_iter, storage.iter + 1, eval_log_iter + 1)
+        log_eval_results(storage, future.result(), eval_log_iter)
+        write_all(writers)
+
     logger.info(f"Starting training from epoch {start_epoch}")
-    with EventStorage(start_epoch * steps_per_epoch) as storage:
+    with EventStorage(start_epoch * steps_per_epoch) as storage, eval_pool or contextlib.nullcontext():
         storage.max_epoch = max_epochs
         storage.max_iter_per_epoch = steps_per_epoch
         step = start_epoch * steps_per_epoch
@@ -253,20 +310,29 @@ def do_train(
 
                 step += 1
                 storage.iter = step
+                if vis_period > 0 and step % vis_period == 0 and comm.is_main_process():
+                    depth = eval_step({"img": batch["img"][:1]})[0, 0].float().cpu().numpy()
+                    storage.put_image_with_cmap("train/depth_pred", depth, cmap="magma")
+                    frame = batch["img"][0].permute(1, 2, 0).cpu().numpy()  # CHW -> HWC
+                    storage.put_image("train/image", (frame * 255).astype(np.uint8))
                 if step % log_period == 0:
                     drain(all_=True)
-                    for writer in writers:
-                        writer.write()
+                    write_all(writers)
                 t_data, t_prev = time.perf_counter(), t_batch
 
             drain(all_=True)
             periodic_ckpt.step(epoch, state)
             if eval_period > 0 and (epoch + 1) % eval_period == 0:
-                log_eval_results(storage, do_test(cfg, state=state, eval_step=eval_step), step)
+                if async_eval:
+                    join_pending_eval(storage)  # at most one in flight
+                    pending_eval = (step, eval_pool.submit(_evaluate_snapshot, cfg, *_snapshot(state)))
+                else:
+                    log_eval_results(storage, do_test(cfg, state=state, eval_step=eval_step), step)
             comm.synchronize()
 
+        join_pending_eval(storage)
+        write_all(writers)
         for writer in writers:
-            writer.write()
             writer.close()
 
     logger.info("Training complete")

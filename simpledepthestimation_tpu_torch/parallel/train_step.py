@@ -34,14 +34,14 @@ from __future__ import annotations
 import contextlib
 import functools
 from dataclasses import dataclass
-from typing import Callable, Dict, Optional, Union
+from typing import Callable, Dict, Iterable, Optional, Union
 
 import torch
 import torch.nn as nn
 import torch.utils.checkpoint
 
 from ..models.build import build_model, resolve_device
-from ..models.norm_layers import statistics_frozen
+from ..models.norm_layers import BatchNorm2d, statistics_frozen
 from ..models.pretrained import maybe_load_pretrained_encoder
 from ..solver.build import ScheduledLR, build_optimizer
 
@@ -68,6 +68,7 @@ def create_train_state(
     generator: Optional[torch.Generator] = None,
     steps_per_epoch: int = 1,
     model: Optional[nn.Module] = None,
+    warm_start: bool = True,
 ) -> TrainState:
     """Build the model (on the CUDA device unless another is named; see
     :func:`..models.build.build_model`), its optimizer, its schedule and the
@@ -85,12 +86,14 @@ def create_train_state(
     keeps the seeded weights and warns). The JAX package does this in
     ``engine.runtime.do_train`` right after making the state; the port's
     ``engine.runtime.do_train`` gets it by making its state here, before it
-    resumes or loads ``MODEL.WEIGHTS``, the same order."""
+    resumes or loads ``MODEL.WEIGHTS``, the same order. ``warm_start=False``
+    skips it: the JAX package's ``DefaultTrainer`` never loads one, and
+    ``engine.trainer.DefaultTrainer`` follows it."""
     if model is None:
         model = build_model(cfg, device=device, generator=generator)
     else:
         model = model.to(resolve_device(device))
-    weights = maybe_load_pretrained_encoder(cfg, model)
+    weights = maybe_load_pretrained_encoder(cfg, model) if warm_start else None
     optimizer, scheduler = build_optimizer(cfg, model, steps_per_epoch)
     model_device = next(model.parameters()).device
     noise = torch.Generator(device=model_device).manual_seed(max(int(cfg.get("SEED", 0)), 0))
@@ -211,3 +214,44 @@ def make_eval_step(state: TrainState) -> Callable[[Dict[str, torch.Tensor]], tor
             return state.model(batch, train=False)["depth_pred"]
 
     return eval_step
+
+
+def compute_precise_bn_stats(state: TrainState, batches: Iterable[Dict[str, torch.Tensor]]) -> int:
+    """Replace the running statistics of every BatchNorm of ``state.model`` that
+    updates them by their true average over ``batches`` (train-mode forwards
+    under ``no_grad``, on the model's device); returns the number of batches.
+
+    The counterpart of the JAX package's ``compute_precise_bn_stats`` (and of
+    fvcore's ``update_bn_stats`` behind the original code's ``PreciseBN``
+    hook): forward ``i`` (from 0) runs with momentum ``1/(i+1)``, so the
+    statistics after ``n`` forwards are the mean of the ``n`` batches' (the
+    first forward overwrites them). The JAX package gets the same mean as
+    ``mean(z_i)/(1 − m)`` from forwards that start at zero; the two agree up to
+    rounding. The batches' variance is the biased one, as in training.
+    A BatchNorm that does not update (``BN_NO_TRACK`` runs it on its stored
+    statistics) keeps them to the bit; momenta and ``num_batches_tracked`` are
+    left as they were. The forwards draw their noise (RandLayerNorm) from a
+    generator of their own seeded 0, so ``state.noise_generator`` is not moved.
+    On MonoDepth2 each forward computes the loss, and so launches the warp and
+    photometric kernels as a validation-loss pass does."""
+    model = state.model
+    norms = [m for m in model.modules() if isinstance(m, BatchNorm2d)]
+    if not norms:
+        return 0
+    device = next(model.parameters()).device
+    generator = torch.Generator(device=device).manual_seed(0)
+    momenta = [m.momentum for m in norms]
+    counts = [m.num_batches_tracked.clone() for m in norms]
+    n = 0
+    try:
+        with torch.no_grad():
+            for batch in batches:
+                for m in norms:
+                    m.momentum = 1.0 / (n + 1)
+                model(batch, train=True, generator=generator)
+                n += 1
+    finally:
+        for m, momentum, count in zip(norms, momenta, counts):
+            m.momentum = momentum
+            m.num_batches_tracked.copy_(count)
+    return n

@@ -1,13 +1,16 @@
 """Metric storage and writers.
 
 The port's copy of ``simpledepthestimation_tpu/utils/events.py``: a
-stack-scoped ``EventStorage`` of smoothed scalar histories, drained by
-``JSONWriter``, ``TensorboardWriter`` and ``CommonMetricPrinter``. Values
-are converted to Python floats when they are put: the runtime hands over
-floats it has already read from the device.
+stack-scoped ``EventStorage`` of smoothed scalar histories, images and
+histograms, drained by ``JSONWriter``, ``TensorboardWriter`` and
+``CommonMetricPrinter``. Values are converted to Python floats when they are
+put: the runtime hands over floats it has already read from the device.
 ``TensorboardWriter`` needs the ``tensorboard`` package; build it through
 :func:`tensorboard_writer_or_none`, which warns once and returns ``None``
-where the package is missing.
+where the package is missing. Only a ``TensorboardWriter`` takes images and
+histograms, so a write round goes through :func:`write_all`, which drops them
+after the writers have written: without tensorboard they would otherwise pile
+up in the storage for the length of a run.
 """
 
 from __future__ import annotations
@@ -22,6 +25,8 @@ from collections import defaultdict
 from typing import Dict, List, Optional, Tuple
 
 import numpy as np
+
+from .colormap import magma
 
 _CURRENT_STORAGE_STACK: List["EventStorage"] = []
 
@@ -61,6 +66,9 @@ class HistoryBuffer:
     def global_avg(self) -> float:
         return self._global_avg
 
+    def values(self) -> List[Tuple[float, float]]:
+        return self._data
+
 
 class EventStorage:
     """Scoped store of the scalars produced during training."""
@@ -73,6 +81,8 @@ class EventStorage:
         self._epoch = 0
         self._max_epoch = 0
         self._max_iter_per_epoch = 0
+        self._vis_data: List[Tuple[str, np.ndarray, int]] = []
+        self._histograms: List[dict] = []
 
     # -- scalars -----------------------------------------------------------
     def put_scalar(self, name: str, value, smoothing_hint: bool = True) -> None:
@@ -88,6 +98,32 @@ class EventStorage:
     def put_scalars(self, *, smoothing_hint: bool = True, **kwargs) -> None:
         for k, v in kwargs.items():
             self.put_scalar(k, v, smoothing_hint=smoothing_hint)
+
+    # -- images and histograms ------------------------------------------------
+    def put_image(self, img_name: str, img: np.ndarray) -> None:
+        """``img``: [H, W, C] or [C, H, W], uint8 or float."""
+        self._vis_data.append((img_name, np.asarray(img), self._iter))
+
+    def put_image_with_cmap(self, img_name: str, img: np.ndarray, cmap: str = "magma") -> None:
+        """A one-channel map scaled to [0, 1] and coloured, as uint8 [H, W, 3]
+        equal to the JAX package's matplotlib rendering (``utils/colormap.py``)."""
+        if cmap != "magma":
+            raise ValueError(f"only the magma colormap is carried without matplotlib, not {cmap!r}")
+        arr = np.asarray(img).squeeze().astype(np.float64)
+        rng = arr.max() - arr.min()
+        arr = (arr - arr.min()) / (rng + 1e-12)
+        self.put_image(img_name, (magma(arr) * 255).astype(np.uint8))
+
+    def put_histogram(self, hist_name: str, values: np.ndarray, bins: int = 1000) -> None:
+        values = np.asarray(values).reshape(-1)
+        counts, edges = np.histogram(values, bins=bins)
+        self._histograms.append(dict(name=hist_name, counts=counts, edges=edges, iter=self._iter))
+
+    def clear_images(self) -> None:
+        self._vis_data = []
+
+    def clear_histograms(self) -> None:
+        self._histograms = []
 
     # -- access ------------------------------------------------------------
     def history(self, name: str) -> HistoryBuffer:
@@ -188,7 +224,7 @@ class JSONWriter(EventWriter):
 
 
 class TensorboardWriter(EventWriter):
-    """Scalars to tensorboard."""
+    """Scalars, images and histograms to tensorboard."""
 
     def __init__(self, log_dir: str, window_size: int = 20, **kwargs):
         self._window_size = window_size
@@ -205,6 +241,25 @@ class TensorboardWriter(EventWriter):
                 self._writer.add_scalar(k, v, itr)
                 new_last_write = max(new_last_write, itr)
         self._last_write = new_last_write
+
+        for img_name, img, step_num in storage._vis_data:
+            dataformats = "HWC" if img.ndim == 3 and img.shape[-1] in (1, 3, 4) else "CHW"
+            self._writer.add_image(img_name, img, step_num, dataformats=dataformats)
+        storage.clear_images()
+
+        for params in storage._histograms:
+            self._writer.add_histogram_raw(
+                tag=params["name"],
+                min=float(params["edges"][0]),
+                max=float(params["edges"][-1]),
+                num=int(params["counts"].sum()),
+                sum=0.0,
+                sum_squares=0.0,
+                bucket_limits=params["edges"][1:].tolist(),
+                bucket_counts=params["counts"].tolist(),
+                global_step=params["iter"],
+            )
+        storage.clear_histograms()
 
     def close(self) -> None:
         if hasattr(self, "_writer"):
@@ -302,3 +357,14 @@ def tensorboard_writer_or_none(log_dir: str, **kwargs) -> Optional[TensorboardWr
             _TENSORBOARD_WARNED = True
             warnings.warn(f"tensorboard is not available ({e}); writing metrics.json and the console only")
         return None
+
+
+def write_all(writers) -> None:
+    """One write round: each writer writes, then the storage's images and
+    histograms are dropped (a ``TensorboardWriter`` has taken them; with none,
+    nothing would)."""
+    for writer in writers:
+        writer.write()
+    storage = get_event_storage()
+    storage.clear_images()
+    storage.clear_histograms()

@@ -30,7 +30,8 @@ the CPU at a small size.
     weights file with a missing and an extra key loads non-strictly and logs
     both.
 (e) Without ``device`` the entry points need a CUDA device (no CPU fallback).
-(f) What the runtime does not do yet raises.
+(f) What the runtime does not do yet (several processes) raises; ``TEST.ASYNC``
+    and ``VIS_PERIOD`` no longer do.
 """
 
 import json
@@ -308,11 +309,19 @@ def test_entry_points_need_cuda_unless_cpu_is_named(tmp_path):
 
 
 @pytest.mark.parametrize("override", [("TEST.ASYNC", True), ("VIS_PERIOD", 5)], ids=["async_eval", "vis_period"])
-def test_unported_runtime_options_raise(tmp_path, override):
+def test_unported_runtime_options_raise(tmp_path, override, monkeypatch):
+    """``TEST.ASYNC`` and ``VIS_PERIOD`` are ported (``tests/test_torch_trainer.py``):
+    the runtime accepts them. What stays unported, several processes, still
+    raises with either of them set."""
+    from simpledepthestimation_tpu_torch.engine.runtime import check_supported
+    from simpledepthestimation_tpu_torch.utils import comm
+
     cfg = _cfg(get_cfg, MONO_YAML, _opts(tmp_path, extra=list(override)))
-    with pytest.raises(NotImplementedError, match="ROADMAP.md A16b"):
+    check_supported(cfg)
+    monkeypatch.setattr(comm, "get_world_size", lambda: 2)
+    with pytest.raises(NotImplementedError, match="ROADMAP.md A17"):
         do_train(cfg, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md A16b"):
+    with pytest.raises(NotImplementedError, match="ROADMAP.md A17"):
         do_test(cfg, device="cpu")
 
 

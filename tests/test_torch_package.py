@@ -26,19 +26,21 @@ def _module_names():
 
 
 ENTRY_POINTS = sorted(glob.glob(os.path.join(REPO, "projects", "*", "train_torch.py")))
+TOOLS = sorted(glob.glob(os.path.join(REPO, "tools", "*_torch.py")))
 
 
 @pytest.fixture(scope="module")
 def loaded_modules():
-    """Every module of the port and the ``train_torch.py`` entry points, imported
-    in a fresh interpreter: the top-level names of everything that came with them."""
+    """Every module of the port, the ``train_torch.py`` entry points and the
+    ``tools/*_torch.py`` twins, imported in a fresh interpreter: the top-level
+    names of everything that came with them."""
     names = _module_names()
     code = (
         "import importlib, importlib.util, json, sys\n"
         f"names = {names!r}\n"
         "for n in names:\n"
         "    importlib.import_module(n)\n"
-        f"for i, path in enumerate({ENTRY_POINTS!r}):\n"
+        f"for i, path in enumerate({ENTRY_POINTS + TOOLS!r}):\n"
         "    spec = importlib.util.spec_from_file_location(f'entry_{i}', path)\n"
         "    spec.loader.exec_module(importlib.util.module_from_spec(spec))\n"
         "print(json.dumps(sorted({m.split('.')[0] for m in sys.modules})))\n"
@@ -50,14 +52,16 @@ def loaded_modules():
 
 def _sources():
     files = glob.glob(os.path.join(REPO, "simpledepthestimation_tpu_torch", "**", "*.py"), recursive=True)
-    return files + [os.path.join(REPO, "chip_smoke.py")] + ENTRY_POINTS
+    return files + [os.path.join(REPO, "chip_smoke.py")] + ENTRY_POINTS + TOOLS
 
 
-def _assert_no_import(pattern):
+def _assert_no_import(pattern, exempt=()):
     import re
 
     pat = re.compile(r"^\s*(from|import)\s+(" + pattern + r")\b", re.M)
     for path in _sources():
+        if os.path.relpath(path, REPO) in exempt:
+            continue
         with open(path) as f:
             assert not pat.search(f.read()), path
 
@@ -75,13 +79,16 @@ def test_every_module_imports_without_jax(loaded_modules):
             "simpledepthestimation_tpu_torch.models.encoders"} <= set(names)
     assert {os.path.relpath(p, REPO) for p in ENTRY_POINTS} == {
         f"projects/{family}/train_torch.py" for family in ("MonoDepth2", "MotionLearning", "Supervised")}
+    assert {os.path.relpath(p, REPO) for p in TOOLS} == {
+        f"tools/{name}_torch.py" for name in ("train_net", "plain_train_net", "export_inference", "demo")}
     bad = loaded & {"jax", "jaxlib", "flax", "optax", "orbax"}
     assert not bad, bad
 
 
 def test_sources_do_not_name_jax():
     """Static twin of the subprocess test: no import statement of the port, of
-    chip_smoke.py or of the ``train_torch.py`` entry points names JAX or the JAX package."""
+    chip_smoke.py, of the ``train_torch.py`` entry points or of the
+    ``tools/*_torch.py`` twins names JAX or the JAX package."""
     _assert_no_import("jax|flax|optax|orbax|simpledepthestimation_tpu")
 
 
@@ -93,10 +100,12 @@ def test_nothing_imports_the_jax_package(loaded_modules):
 
 def test_nothing_imports_opencv(loaded_modules):
     """The data and evaluation code reads and writes PNG files and resizes
-    frames without OpenCV, which the GPU machine need not have."""
+    frames without OpenCV, which the GPU machine need not have. The demo
+    imports it only for what needs it (JPEG frames, ``--video``), inside
+    ``main``, and refuses those without it."""
     _, loaded = loaded_modules
     assert "cv2" not in loaded
-    _assert_no_import("cv2")
+    _assert_no_import("cv2", exempt=("tools/demo_torch.py",))
 
 
 @pytest.mark.parametrize("path", CONFIGS, ids=lambda p: "/".join(p.split("/")[-3:]))
