@@ -28,7 +28,8 @@ line with the weight file the ImageNet warm start found (``null``: none in
 reach, the encoder keeps its seeded weights, and the port's warning about it
 goes to standard error).
 
-Phases: device, build, kernels, main_path, train_path, motion_train_path,
+Phases: device, environment (the Python, Pillow with its libjpeg-turbo, and
+OpenCV or ``null``), build, kernels, main_path, train_path, motion_train_path,
 cli_train_path and motion_cli_train_path (the training entry points
 ``projects/{MonoDepth2,MotionLearning}/train_torch.py`` run in this process at
 B=16 on synthetic data: two epochs with checkpoints and evaluations,
@@ -39,6 +40,12 @@ at each epoch's end, a ``torch.profiler`` trace of one iteration, ``--eval``),
 async_vis_path (``projects/MonoDepth2/train_torch.py`` with ``TEST.ASYNC`` and
 ``VIS_PERIOD 2``: epoch 0's asynchronous evaluation equal to a synchronous one of
 its checkpoint, the panels; the loop's step time with ``TEST.ASYNC`` off and on),
+waymo_cli_train_path, waymo_motion_cli_train_path and waymo_supervised_cli_train_path
+(``projects/{MonoDepth2,MotionLearning,Supervised}/train_torch.py`` on their
+``resnet18_waymo.yaml`` as shipped, on one fabricated tree of 2 segments x 40
+1280x1920 JPEG frames with sparse depth and masks: two epochs, one, one; each
+evaluated on four frames, then ``--eval``), jpeg_agreement (the port's JPEG
+reader against ``cv2.imread`` on the tree's frames, where OpenCV imports),
 predictor_export_path (``DefaultPredictor`` on 375x1242 frames, ``export_inference``
 and ``load_exported`` against eager, ``tools/demo_torch.py`` on two PNG frames),
 supervised_train_path and bts_train_path (``projects/Supervised/configs/
@@ -128,6 +135,9 @@ TIMED_STEPS = 10  # steady state: train steps back to back, one wait at the end
 ZERO_GRADIENT_BY_CONSTRUCTION = {"pose_net.conv1.0.bias"}
 
 PLANES = [(192, 640), (96, 320), (48, 160), (24, 80)]
+# projects/MonoDepth2/configs/Base_waymo.yaml: Resize 192x480 and its three lower scales, where the
+# warp's 8x32 tiles are ragged (240, 120 and 60 pixels a row)
+WAYMO_PLANES = [(192, 480), (96, 240), (48, 120), (24, 60)]
 SMOKE_B, SMOKE_N = 16, 2
 MOTION_HW = (128, 416)  # projects/MotionLearning/configs/Base.yaml: Resize IMG_H, IMG_W
 
@@ -688,6 +698,12 @@ def phase_kernels(device):
             yu = (rand(NB, h, w) * 3.0 - 1.0) * h
             check_warp(image, xu, yu, warp_tol, "uniform_3x_plane" + tag, timed=True)
             check_warp_bwd(image, xu, yu, ct, BWD_RTOL, "uniform_3x_plane" + tag, timed=True)
+        for h, w in WAYMO_PLANES:
+            image, x, y = synthesis_coords(17 + h, NB, h, w, device)
+            image = image.to(dtype)
+            ct = (rand(NB, 3, h, w) - 0.5).to(dtype)
+            check_warp(image, x, y, warp_tol, "waymo_view_synthesis" + tag, timed=True)
+            check_warp_bwd(image, x, y, ct, BWD_RTOL, "waymo_view_synthesis" + tag, timed=True)
         for C, (oh, ow), label in ((3, (37, 83), "unaligned"), (5, (21, 45), "unaligned_other_output_size")):
             image = rand(2, C, 37, 83).to(dtype)
             x, y = rand(2, oh, ow) * 100 - 8, rand(2, oh, ow) * 50 - 6
@@ -1178,7 +1194,8 @@ def _loader_alone_s(argv) -> float:
     from simpledepthestimation_tpu_torch.engine import assemble_cfg, default_argument_parser
 
     cfg = assemble_cfg(default_argument_parser().parse_args([str(a) for a in argv]))
-    loader = build_train_loader(cfg, seed=cfg.SEED, pin_memory=True)
+    # the seed do_train gives the loader (a negative SEED, as the shipped configs have it, means 0)
+    loader = build_train_loader(cfg, seed=cfg.SEED if cfg.SEED >= 0 else 0, pin_memory=True)
     t0 = time.perf_counter()
     n = sum(1 for _ in loader)
     return (time.perf_counter() - t0) / n
@@ -1521,6 +1538,273 @@ def phase_async_vis_path(device):
     finally:
         runtime.EventStorage = original
         shutil.rmtree(out, ignore_errors=True)
+
+
+# --- Waymo: the three resnet18_waymo.yaml through their entry points, on one fabricated tree ---
+
+WAYMO_HW = (1280, 1920)  # a FRONT camera frame
+WAYMO_SEGMENTS, WAYMO_FRAMES = 2, 40  # frames a segment
+WAYMO_SHIFT = 4  # pixels the scene moves sideways between frames (1 at 480 wide, after the resize)
+WAYMO_FOCAL, WAYMO_CENTER = 2055.5, (939.7, 641.1)
+WAYMO_SUPERVISED_TRAIN = 32  # frames in the Supervised train split: 2 steps at B=16
+WAYMO_DECODE_FRAMES = 16  # frames the JPEG decode is timed on
+
+
+def environment_line() -> dict:
+    """What this Python imports for the frames: Pillow (and the libjpeg-turbo it
+    was built with) and OpenCV, or ``None`` where one does not import."""
+    out = {"phase": "environment", "python": sys.version.split()[0]}
+    try:
+        import PIL
+        from PIL import features
+
+        out.update(pillow=PIL.__version__, libjpeg_turbo=features.version_feature("libjpeg_turbo"))
+    except ImportError:
+        out.update(pillow=None, libjpeg_turbo=None)
+    try:
+        import cv2
+
+        out["cv2"] = cv2.__version__
+    except ImportError:
+        out["cv2"] = None
+    return out
+
+
+def _waymo_rel(seg: int, i: int) -> str:
+    return os.path.join(f"segment-{seg}", f"{i:05d}")
+
+
+def _waymo_frame_files(tree, i: int, seg: int, field, rng) -> None:
+    """Frame ``i`` of segment ``seg``: its JPEG (4:2:0, Pillow), the camera-Z depth
+    of a seeded point cloud (the port's ``waymo_extract``, a 16-bit PNG) and a
+    mask of 0/255 blobs (an 8-bit PNG). The PNG files are the port's writer's
+    (filter 0 on every row: the reader's fast path)."""
+    import numpy as np
+    from PIL import Image
+
+    from simpledepthestimation_tpu_torch.data.datasets import waymo_extract as wx
+    from simpledepthestimation_tpu_torch.data.png import write_png
+
+    H, W = WAYMO_HW
+    rel = _waymo_rel(seg, i)
+    frame = field[:, :, i * WAYMO_SHIFT: i * WAYMO_SHIFT + W].transpose(1, 2, 0)
+    Image.fromarray((frame * 255).astype(np.uint8)).save(
+        os.path.join(tree["image"], rel, "FRONT.jpg"), quality=90, subsampling=2)
+    n = 60000
+    pts = np.stack([rng.uniform(4, 80, n), rng.uniform(-30, 30, n), rng.uniform(-2.1, 3.0, n)], axis=-1)
+    extrinsic = np.eye(4)
+    extrinsic[:3, 3] = [1.5, 0.0, 2.1]
+    u, v, depth = wx.project_points_to_camera(pts, extrinsic, wx.intrinsic_matrix4(WAYMO_FOCAL, WAYMO_FOCAL,
+                                                                                    *WAYMO_CENTER))
+    write_png(os.path.join(tree["depth"], rel, "FRONT_depth.png"),
+              wx.encode_depth_png(wx.scatter_depth_image(H, W, np.round(u), np.round(v), depth)))
+    blobs = (rng.random((H // 64, W // 64)) > 0.7).astype(np.uint8) * 255
+    write_png(os.path.join(tree["mask"], rel, "FRONT_mask.png"), blobs.repeat(64, 0).repeat(64, 1))
+
+
+def waymo_tree() -> dict:
+    """The extracted Waymo tree that every Waymo phase reads: two segments of
+    40 ``FRONT`` frames at 1280x1920, each a smooth random field that moves 4 px
+    sideways a frame (on white noise the automask leaves the warp no gradient),
+    laid out as ``tools/extract_waymo_data.py`` writes it, and three infos
+    pickles (the port's ``build_frame_info``/``assemble_infos``): every frame
+    (``training``, ``validation``) and the first 32 (``supervised_train``). In a
+    temporary directory, removed when the script exits."""
+    import atexit
+    import pickle
+    import shutil
+    import tempfile
+    from concurrent.futures import ThreadPoolExecutor
+
+    import numpy as np
+
+    from simpledepthestimation_tpu_torch.data.datasets import waymo_extract as wx
+
+    t0 = time.perf_counter()
+    root = tempfile.mkdtemp(prefix="sde_waymo_")
+    atexit.register(shutil.rmtree, root, True)
+    tree = {k: os.path.join(root, k) for k in ("image", "depth", "mask")}
+    K = np.array([[WAYMO_FOCAL, 0, WAYMO_CENTER[0]], [0, WAYMO_FOCAL, WAYMO_CENTER[1]], [0, 0, 1]], np.float32)
+    calib = {"FRONT": {"intrinsics": K, "extrinsics": np.eye(4, dtype=np.float32)}}
+    rng = np.random.RandomState(31)
+    segments = []
+    with ThreadPoolExecutor(8) as pool:
+        jobs = []
+        for seg in range(WAYMO_SEGMENTS):
+            field = smooth_field(rng, 1, WAYMO_HW[0], WAYMO_HW[1] + WAYMO_SHIFT * WAYMO_FRAMES, cell=32)[0]
+            frames = []
+            for i in range(WAYMO_FRAMES):
+                for d in ("image", "depth", "mask"):
+                    os.makedirs(os.path.join(tree[d], _waymo_rel(seg, i)), exist_ok=True)
+                jobs.append(pool.submit(_waymo_frame_files, tree, i, seg, field,
+                                        np.random.default_rng(1000 * seg + i)))
+                frames.append(wx.build_frame_info(f"segment-{seg}", i, _waymo_rel(seg, i), calib))
+            segments.append(frames)
+        for job in jobs:
+            job.result()
+    infos = {"training": wx.assemble_infos(segments), "validation": wx.assemble_infos(segments),
+             "supervised_train": wx.assemble_infos([segments[0][:WAYMO_SUPERVISED_TRAIN]])}
+    for name, payload in infos.items():
+        tree[name] = os.path.join(root, f"{name}_infos.pkl")
+        with open(tree[name], "wb") as f:
+            pickle.dump(payload, f)
+    tree["frames"] = [os.path.join(tree["image"], fr["rel_dir"], "FRONT.jpg") for fr in infos["training"]["frames"]]
+    tree["seconds"] = time.perf_counter() - t0
+    return tree
+
+
+def _jpeg_decode_ms(paths) -> float:
+    """Median milliseconds of one ``read_jpeg`` of each path (the loader's reader)."""
+    from simpledepthestimation_tpu_torch.data.jpeg import read_jpeg
+
+    times = []
+    for p in paths:
+        t0 = time.perf_counter()
+        read_jpeg(p)
+        times.append((time.perf_counter() - t0) * 1e3)
+    return _median(times)
+
+
+def _out_hw(ds_cfg):
+    """[H, W] of the frames a Waymo preprocess list gives: its ``Resize`` or
+    ``RandomCrop``, else ``CropTopTo``'s rows of the full width."""
+    ops = {p["NAME"]: p for p in ds_cfg.PREPROCESS}
+    for name in ("Resize", "RandomCrop"):
+        if name in ops:
+            return [int(ops[name]["IMG_H"]), int(ops[name]["IMG_W"])]
+    return [int(ops["CropTopTo"]["IMG_H"]), WAYMO_HW[1]]
+
+
+def _waymo_cli_train_path(tree, phase, project, model_name, epochs, per_step, absent, train_split="training",
+                          timings=False):
+    """``projects/<project>/train_torch.py`` on ``configs/resnet18_waymo.yaml`` as
+    shipped (``18pt``, B=16, bf16; MonoDepth2 192x480, MotionLearning 128x416 with
+    masks, Supervised a 352x704 crop and evaluation at 768x1920) on the
+    fabricated tree, with only the tree's paths, ``OUTPUT_DIR``,
+    ``SOLVER.MAX_EPOCHS`` (``epochs``) and ``LOG_PERIOD`` 1 (a row for every
+    step) overridden: ``epochs`` epochs with a checkpoint and an evaluation
+    (four frames, ``DOWNSAMPLE`` 20) after each, then ``--eval``. Checked: finite
+    losses in every row, the checkpoints, the evaluation rows, ``--eval`` equal
+    to the last row, and the kernels' launches in training (``per_step``: name ->
+    exact count a step, or None for at least one; ``absent``: never)."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    from simpledepthestimation_tpu_torch.data import DATASET_REGISTRY
+    from simpledepthestimation_tpu_torch.engine import assemble_cfg, default_argument_parser
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    out = tempfile.mkdtemp(prefix="sde_waymo_cli_")
+    try:
+        argv = ["--cfg", os.path.join(root, "projects", project, "configs", "resnet18_waymo.yaml")]
+        for split, infos in (("TRAIN", tree[train_split]), ("TEST", tree["validation"])):
+            argv += [f"DATASETS.{split}.DATA_ROOT", tree["image"], f"DATASETS.{split}.DEPTH_ROOT", tree["depth"],
+                     f"DATASETS.{split}.SPLIT", infos]
+        if project == "MotionLearning":
+            argv += ["DATASETS.TRAIN.MASK_ROOT", tree["mask"]]
+        argv += ["SOLVER.MAX_EPOCHS", epochs, "LOG_PERIOD", 1, "OUTPUT_DIR", out]
+        run_dir = os.path.join(out, f"{project}_resnet18_waymo")
+        cfg = assemble_cfg(default_argument_parser().parse_args([str(a) for a in argv]))
+        if int(cfg.SOLVER.IMS_PER_BATCH) != SMOKE_B or str(cfg.TPU.COMPUTE_DTYPE) != "bfloat16":
+            raise AssertionError(f"{phase}: the shipped config is not B={SMOKE_B} bf16")
+        steps_per_epoch = len(DATASET_REGISTRY.get(cfg.DATASETS.TRAIN.NAME)(cfg.DATASETS.TRAIN, cfg)) // SMOKE_B
+        extra = {}
+        if timings:
+            extra["jpeg_decode_ms_per_frame"] = _jpeg_decode_ms(tree["frames"][:WAYMO_DECODE_FRAMES])
+            extra["loader_alone_batch_s"] = _loader_alone_s(argv)
+
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        state = _cli(project, argv)
+        train_s = time.perf_counter() - t0
+        launches = read_launch_counts()
+        if next(state.model.parameters()).device.type != "cuda":
+            raise AssertionError(f"{phase}: the model did not train on the card")
+        del state
+        rows = _metric_rows(run_dir)
+        steps = [r for r in rows if "total_loss" in r]
+        evals = _check_cli_rows(rows, range(epochs * steps_per_epoch), epochs, phase)
+        ckpts = sorted(f for f in os.listdir(run_dir) if f.startswith("model_"))
+        if ckpts != [f"model_{e:04d}.pth" for e in range(epochs)]:
+            raise AssertionError(f"{phase}: checkpoints {ckpts}")
+
+        t0 = time.perf_counter()
+        results = _cli(project, ["--eval"] + argv)
+        eval_s = time.perf_counter() - t0
+        got = {k: results["kitti evaluator"][k] for k in CLI_EVAL_KEYS}
+        want = {k: evals[-1][f"kitti evaluator/{k}"] for k in CLI_EVAL_KEYS}
+        if got != want:
+            raise AssertionError(f"{phase}: --eval gave {got}, the last evaluation row of training {want}")
+
+        n_steps = epochs * steps_per_epoch
+        for name, n in per_step.items():
+            if (launches[name] < 1) if n is None else (launches[name] != n * n_steps):
+                raise AssertionError(f"{phase}: {name} launched {launches[name]} times in {n_steps} steps, "
+                                     f"expected {'at least 1' if n is None else n * n_steps}")
+        if any(launches[name] for name in absent):
+            raise AssertionError(f"{phase}: a kernel the path does not run was launched: {launches}")
+        torch.cuda.empty_cache()
+        emit({
+            "phase": phase, "model": model_name, "entry_point": f"projects/{project}/train_torch.py",
+            "config": f"projects/{project}/configs/resnet18_waymo.yaml", "batch": SMOKE_B,
+            "train_hw": _out_hw(cfg.DATASETS.TRAIN), "test_hw": _out_hw(cfg.DATASETS.TEST),
+            "frames": f"{WAYMO_SEGMENTS} segments x {WAYMO_FRAMES} JPEG {WAYMO_HW[0]}x{WAYMO_HW[1]}",
+            "tree_s": tree["seconds"], "epochs": epochs, "steps": n_steps, "launches": launches,
+            "checkpoints": ckpts, "median_step_wall_s": _median([r["time"] for r in steps]),
+            "median_data_time_s": _median([r["data_time"] for r in steps]),
+            "median_h2d_copy_s": _median([r["h2d_time"] for r in steps if "h2d_time" in r]),
+            **extra, "train_run_s": train_s, "eval_run_s": eval_s,
+            "eval": got,
+        })
+        return launches
+    finally:
+        shutil.rmtree(out, ignore_errors=True)
+
+
+def phase_waymo_cli_train_path(device, tree):
+    return _waymo_cli_train_path(
+        tree, "waymo_cli_train_path", "MonoDepth2", "MonoDepth2-R18", 2, MONO_PER_STEP, (), timings=True)
+
+
+def phase_waymo_motion_cli_train_path(device, tree):
+    return _waymo_cli_train_path(
+        tree, "waymo_motion_cli_train_path", "MotionLearning", "MotionLearning-R18 (GoogleResNet-18 randLN + GoogleMotionNet)",
+        1, {"warp_bilinear_fwd": None, "warp_bilinear_bwd_coords": None, "warp_bilinear_bwd_image": None},
+        ("photometric_map_fwd", "photometric_map_bwd"))
+
+
+def phase_waymo_supervised_cli_train_path(device, tree):
+    return _waymo_cli_train_path(
+        tree, "waymo_supervised_cli_train_path", "Supervised", "DepthResNet-18 (SupDepthModel)", 1, {}, KERNEL_NAMES,
+        train_split="supervised_train")
+
+
+def phase_jpeg_agreement(device, tree):
+    """The port's JPEG reader (``data/jpeg.py``) against ``cv2.imread`` + BGR→RGB
+    on the tree's frames, where OpenCV imports here; otherwise ``"cv2": null``."""
+    import numpy as np
+
+    from simpledepthestimation_tpu_torch.data.jpeg import read_jpeg
+
+    paths = tree["frames"][:WAYMO_DECODE_FRAMES]
+    rec = {"phase": "jpeg_agreement", **{k: v for k, v in environment_line().items() if k != "phase"},
+           "frames": len(paths), "hw": list(WAYMO_HW), "port_ms_per_frame": _jpeg_decode_ms(paths)}
+    if rec["cv2"] is not None:
+        import cv2
+
+        differing, times = 0, []
+        for p in paths:
+            t0 = time.perf_counter()
+            want = cv2.cvtColor(cv2.imread(p), cv2.COLOR_BGR2RGB)
+            times.append((time.perf_counter() - t0) * 1e3)
+            got = read_jpeg(p)
+            differing += int(np.count_nonzero(got != want)) if got.shape == want.shape else got.size
+        rec.update(differing_values=differing, cv2_ms_per_frame=_median(times))
+    emit(rec)
+    if rec.get("differing_values"):
+        raise AssertionError(f"the port's JPEG reader differs from cv2.imread: {rec}")
 
 
 def phase_predictor_export_path(device):
@@ -2368,6 +2652,7 @@ def main() -> int:
     smi = nvidia_smi_line()
     emit({"phase": "device", "nvidia_smi": smi, "kind": torch.cuda.get_device_name(0),
           "count": torch.cuda.device_count(), "torch": torch.__version__, "cuda": torch.version.cuda})
+    emit(environment_line())
 
     cuda_lib.load(verbose=True)
     emit({"phase": "build", "sources": [os.path.relpath(s, os.path.dirname(os.path.abspath(__file__)))
@@ -2380,12 +2665,17 @@ def main() -> int:
         # copied into its root: no main path, so no closing line
         emit({"phase": "done", "kernels_only": True, "seconds": time.perf_counter() - t_start})
         return 0
+    waymo = waymo_tree()
     by_path = {"main_path": phase_main_path(device), "train_path": phase_train_path(device),
                "motion_train_path": phase_motion_train_path(device),
                "cli_train_path": phase_cli_train_path(device),
                "motion_cli_train_path": phase_motion_cli_train_path(device),
                "default_trainer_path": phase_default_trainer_path(device),
-               "async_vis_path": phase_async_vis_path(device)}
+               "async_vis_path": phase_async_vis_path(device),
+               "waymo_cli_train_path": phase_waymo_cli_train_path(device, waymo),
+               "waymo_motion_cli_train_path": phase_waymo_motion_cli_train_path(device, waymo)}
+    phase_waymo_supervised_cli_train_path(device, waymo)  # launches none of K1-K5 (checked)
+    phase_jpeg_agreement(device, waymo)
     phase_predictor_export_path(device)
     # the Supervised family launches none of K1-K5 (each phase checks it)
     for phase in (phase_supervised_train_path, phase_bts_train_path, phase_supervised_cli_train_path):
@@ -2406,17 +2696,20 @@ def main() -> int:
     for key, name, source, replaces, paths in (
         ("warp", "warp_bilinear_fwd", csrc + "warp.cu", pallas + "pallas_warp.py:755",
          ("main_path", "train_path", "motion_train_path", "cli_train_path", "motion_cli_train_path",
-          "default_trainer_path", "async_vis_path", "packnet_train_path", "motion_rigid_train_path")),
+          "default_trainer_path", "async_vis_path", "waymo_cli_train_path", "waymo_motion_cli_train_path",
+          "packnet_train_path", "motion_rigid_train_path")),
         ("photo", "photometric_map_fwd", csrc + "photometric.cu", pallas + "pallas_photometric.py:243",
          ("main_path", "train_path", "cli_train_path", "default_trainer_path", "async_vis_path",
-          "packnet_train_path")),
+          "waymo_cli_train_path", "packnet_train_path")),
         ("warp_bwd", "warp_bilinear_bwd_coords", csrc + "warp.cu", pallas + "pallas_warp.py:802",
          ("train_path", "motion_train_path", "cli_train_path", "motion_cli_train_path", "default_trainer_path",
-          "async_vis_path", "packnet_train_path", "motion_rigid_train_path")),
+          "async_vis_path", "waymo_cli_train_path", "waymo_motion_cli_train_path", "packnet_train_path",
+          "motion_rigid_train_path")),
         ("photo_bwd", "photometric_map_bwd", csrc + "photometric.cu", pallas + "pallas_photometric.py:171",
-         ("train_path", "cli_train_path", "default_trainer_path", "async_vis_path", "packnet_train_path")),
+         ("train_path", "cli_train_path", "default_trainer_path", "async_vis_path", "waymo_cli_train_path",
+          "packnet_train_path")),
         ("warp_bwd_image", "warp_bilinear_bwd_image", csrc + "warp.cu", pallas + "pallas_warp.py:1119",
-         ("motion_train_path", "motion_cli_train_path", "motion_rigid_train_path")),
+         ("motion_train_path", "motion_cli_train_path", "waymo_motion_cli_train_path", "motion_rigid_train_path")),
     ):
         counts = {path: by_path[path][name] for path in paths}
         if min(counts.values()) < 1:

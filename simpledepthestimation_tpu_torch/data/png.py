@@ -5,7 +5,8 @@ Read: non-interlaced PNG of colour type 0 (gray), 2 (RGB) or 6 (RGBA) at bit
 depth 8 or 16, all five scanline filters; anything else raises. Returned as
 stored, ``uint8`` or ``uint16``, channels in file order (RGB, not OpenCV's
 BGR). Write: 16-bit gray, the depth-map format of KITTI and of
-``evaluation.depth_evaluation.write_depth``, and 8-bit RGB (the demo's panels).
+``evaluation.depth_evaluation.write_depth``, 8-bit gray (a mask) and 8-bit RGB
+(the demo's panels).
 """
 
 from __future__ import annotations
@@ -15,7 +16,7 @@ import zlib
 
 import numpy as np
 
-_SIGNATURE = b"\x89PNG\r\n\x1a\n"
+SIGNATURE = b"\x89PNG\r\n\x1a\n"
 _CHANNELS = {0: 1, 2: 3, 6: 4}
 
 
@@ -68,9 +69,9 @@ def read_png(path: str) -> np.ndarray:
     """[H, W] (gray) or [H, W, C] (RGB, RGBA) array of ``uint8`` or ``uint16``."""
     with open(path, "rb") as f:
         data = f.read()
-    if not data.startswith(_SIGNATURE):
+    if not data.startswith(SIGNATURE):
         raise ValueError(f"{path} is not a PNG file")
-    pos, header, idat = len(_SIGNATURE), None, []
+    pos, header, idat = len(SIGNATURE), None, []
     while pos < len(data):
         (length,) = struct.unpack(">I", data[pos : pos + 4])
         ctype = data[pos + 4 : pos + 8]
@@ -101,20 +102,24 @@ def _chunk(ctype: bytes, body: bytes) -> bytes:
 
 
 def write_png(path: str, img: np.ndarray) -> None:
-    """Write a ``uint16`` [H, W] array as a 16-bit gray PNG, or a ``uint8``
-    [H, W, 3] array as an 8-bit RGB one (zlib, filter 0 on every row)."""
+    """Write a ``uint16`` [H, W] array as a 16-bit gray PNG, a ``uint8`` [H, W]
+    array as an 8-bit gray one, or a ``uint8`` [H, W, 3] array as an 8-bit RGB
+    one (zlib, filter 0 on every row)."""
     img = np.ascontiguousarray(img)
     if img.dtype == np.uint16 and img.ndim == 2:
         depth, color, rows = 16, 0, img.astype(">u2").view(np.uint8)
+    elif img.dtype == np.uint8 and img.ndim == 2:
+        depth, color, rows = 8, 0, img
     elif img.dtype == np.uint8 and img.ndim == 3 and img.shape[2] == 3:
         depth, color, rows = 8, 2, img
     else:
-        raise ValueError(f"write_png takes a uint16 [H, W] or a uint8 [H, W, 3] array, not {img.dtype} {img.shape}")
+        raise ValueError(f"write_png takes a uint16 [H, W] or a uint8 [H, W] or [H, W, 3] array, "
+                         f"not {img.dtype} {img.shape}")
     height, width = img.shape[:2]
     rows = rows.reshape(height, -1)
     raw = np.concatenate([np.zeros((height, 1), np.uint8), rows], axis=1).tobytes()
     with open(path, "wb") as f:
-        f.write(_SIGNATURE)
+        f.write(SIGNATURE)
         f.write(_chunk(b"IHDR", struct.pack(">IIBBBBB", width, height, depth, color, 0, 0, 0)))
         f.write(_chunk(b"IDAT", zlib.compress(raw, 6)))
         f.write(_chunk(b"IEND", b""))

@@ -3,9 +3,11 @@
 evaluation), ``LoadMask`` and ``LoadLidar``.
 
 The port's copy of ``simpledepthestimation_tpu/data/preprocess/loading.py``,
-with PNG files read by ``data/png.py`` in place of ``cv2.imread``: the same
-arrays (``imread`` gives BGR, which the JAX package turns into RGB; the
-reader gives RGB directly).
+with files read by ``data/png.py`` and ``data/jpeg.py`` in place of
+``cv2.imread``: the same arrays (``imread`` gives BGR, which the JAX package
+turns into RGB; the readers give RGB directly). A frame's format is told by
+its first bytes, as ``imread`` tells it, not by its name; depth maps and
+masks are PNG only.
 """
 
 from __future__ import annotations
@@ -14,7 +16,7 @@ import os
 
 import numpy as np
 
-from ..png import read_png
+from .. import jpeg, png
 from .build import PREPROCESS_REGISTRY, Preprocess
 
 
@@ -22,7 +24,7 @@ def _read_gray(path: str) -> np.ndarray:
     """A one-channel PNG as stored (``cv2.imread(path, -1)`` of a depth map or a mask)."""
     if not os.path.isfile(path):
         raise FileNotFoundError(f"{path} does not exist!")
-    img = read_png(path)
+    img = png.read_png(path)
     if img.ndim != 2:
         raise ValueError(f"{path}: expected a one-channel PNG, got {img.shape[2]} channels")
     return img
@@ -36,11 +38,18 @@ class LoadImg(Preprocess):
 
     @staticmethod
     def _load(path: str) -> np.ndarray:
-        """An 8-bit RGB frame (``cv2.imread`` + BGR→RGB): gray is repeated to
-        three channels and alpha dropped, as ``imread`` does."""
+        """An 8-bit RGB frame (``cv2.imread`` + BGR→RGB) of a PNG or JPEG
+        file: gray is repeated to three channels and alpha dropped, as
+        ``imread`` does."""
         if not os.path.isfile(path):
             raise FileNotFoundError(f"{path} does not exist!")
-        img = read_png(path)
+        with open(path, "rb") as f:
+            head = f.read(len(png.SIGNATURE))
+        if head.startswith(jpeg.SIGNATURE):
+            return jpeg.read_jpeg(path)
+        if not head.startswith(png.SIGNATURE):
+            raise ValueError(f"{path} is neither a PNG nor a JPEG file")
+        img = png.read_png(path)
         if img.dtype != np.uint8:
             raise ValueError(f"{path}: a 16-bit colour frame is not supported")
         if img.ndim == 2:

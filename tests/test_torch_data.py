@@ -12,7 +12,7 @@ the JAX package's, which runs on OpenCV; the port imports no OpenCV.
   results equal; float32 results bit-equal where a row is a multiple of 16
   pixels wide: at the last pixels of other rows OpenCV's scalar tail code
   rounds in the last bit otherwise, ``data/preprocess/augmentation.py``).
-- PNG: the reader against ``cv2.imread`` and the (16-bit) writer read back by it, equal.
+- PNG: the reader against ``cv2.imread`` and the writer (16-bit and 8-bit gray) read back by it, equal.
 """
 
 import os
@@ -194,6 +194,10 @@ def test_png_writer_reads_back_through_cv2(tmp_path):
         write_png(path, img)
         np.testing.assert_array_equal(cv2.imread(path, cv2.IMREAD_UNCHANGED), img)
         np.testing.assert_array_equal(read_png(path), img)
+    mask = (rng.random((23, 41)) > 0.5).astype(np.uint8) * 255  # an 8-bit gray mask
+    write_png(path, mask)
+    np.testing.assert_array_equal(cv2.imread(path, cv2.IMREAD_UNCHANGED), mask)
+    np.testing.assert_array_equal(read_png(path), mask)
     for bad in (np.zeros((4, 4), np.float32), np.zeros((4, 4, 3), np.uint16)):
         with pytest.raises(ValueError):
             write_png(path, bad)

@@ -76,11 +76,15 @@ def test_every_module_imports_without_jax(loaded_modules):
             "simpledepthestimation_tpu_torch.engine.runtime",
             "simpledepthestimation_tpu_torch.utils.events",
             "simpledepthestimation_tpu_torch.models.bts",
-            "simpledepthestimation_tpu_torch.models.encoders"} <= set(names)
+            "simpledepthestimation_tpu_torch.models.encoders",
+            "simpledepthestimation_tpu_torch.data.jpeg",
+            "simpledepthestimation_tpu_torch.data.datasets.waymo",
+            "simpledepthestimation_tpu_torch.data.datasets.waymo_extract"} <= set(names)
     assert {os.path.relpath(p, REPO) for p in ENTRY_POINTS} == {
         f"projects/{family}/train_torch.py" for family in ("MonoDepth2", "MotionLearning", "Supervised")}
     assert {os.path.relpath(p, REPO) for p in TOOLS} == {
-        f"tools/{name}_torch.py" for name in ("train_net", "plain_train_net", "export_inference", "demo")}
+        f"tools/{name}_torch.py" for name in ("train_net", "plain_train_net", "export_inference", "demo",
+                                              "import_torch_checkpoint")}
     bad = loaded & {"jax", "jaxlib", "flax", "optax", "orbax"}
     assert not bad, bad
 
@@ -99,13 +103,35 @@ def test_nothing_imports_the_jax_package(loaded_modules):
 
 
 def test_nothing_imports_opencv(loaded_modules):
-    """The data and evaluation code reads and writes PNG files and resizes
-    frames without OpenCV, which the GPU machine need not have. The demo
-    imports it only for what needs it (JPEG frames, ``--video``), inside
-    ``main``, and refuses those without it."""
+    """The data and evaluation code reads PNG and JPEG files, writes PNG files
+    and resizes frames without OpenCV, which the GPU machine need not have. The
+    demo imports it only for ``--video``, in one function, and refuses that
+    without it; ``chip_smoke.py`` only to report its version and to hold the
+    JPEG reader against ``cv2.imread`` where it imports, in two functions."""
+    import re
+
     _, loaded = loaded_modules
     assert "cv2" not in loaded
-    _assert_no_import("cv2", exempt=("tools/demo_torch.py",))
+    _assert_no_import("cv2", exempt=("tools/demo_torch.py", "chip_smoke.py"))
+    pattern = re.compile(r"^(\s*)(?:from|import)\s+cv2\b", re.M)
+    with open(os.path.join(REPO, "tools", "demo_torch.py")) as f:
+        demo = f.read()
+    assert pattern.findall(demo) == ["        "]  # one import, in the body of a function
+    assert re.search(r"def _opencv\(\):\n    try:\n        import cv2\n", demo)
+    with open(os.path.join(REPO, "chip_smoke.py")) as f:
+        smoke = f.read()
+    assert len(pattern.findall(smoke)) == 2 and all(indent for indent in pattern.findall(smoke))
+    for function in ("environment_line", "phase_jpeg_agreement"):
+        body = smoke[smoke.index(f"def {function}("):]
+        body = body[:body.index("\ndef ")]
+        assert pattern.search(body), function
+
+
+def test_nothing_imports_pillow(loaded_modules):
+    """Pillow is imported by the JPEG reader when it reads a JPEG file, never
+    when a module is imported."""
+    _, loaded = loaded_modules
+    assert "PIL" not in loaded
 
 
 @pytest.mark.parametrize("path", CONFIGS, ids=lambda p: "/".join(p.split("/")[-3:]))

@@ -2,7 +2,8 @@
 run in this process with ``--device cpu`` on the synthetic configs at a tiny
 size (one step an epoch): what each writes, ``--eval`` reproducing the last
 evaluation row of training, the exported program equal to eager, the demo's
-panels, and the demo's refusal of JPEG and ``--video`` without OpenCV.
+panels, and the demo without OpenCV: JPEG frames read by the port's reader,
+``--video`` refused.
 
 The hook path on a MotionLearning config runs as the JAX package's
 ``DefaultTrainer`` does: without the noise and burn-in schedule (the model's
@@ -124,15 +125,34 @@ def test_demo_writes_one_panel_per_png(mono_run, tmp_path):
         assert len(np.unique(panel[H:].reshape(-1, 3), axis=0)) > 1  # a coloured depth map under the frame
 
 
-def test_demo_refuses_jpeg_and_video_without_opencv(mono_run, tmp_path, monkeypatch):
+@pytest.mark.parametrize("case", ["jpeg_reads_as_its_png_copy", "video_refused"])
+def test_demo_refuses_jpeg_and_video_without_opencv(mono_run, tmp_path, monkeypatch, case):
+    """Without OpenCV: JPEG frames are read by the port's reader and give the
+    panels that their decoded pixels give as PNG files; ``--video`` is refused."""
+    from PIL import Image
+
+    from simpledepthestimation_tpu_torch.data.jpeg import read_jpeg
+
     monkeypatch.setitem(sys.modules, "cv2", None)  # import cv2 raises ImportError
-    (tmp_path / "a.jpg").write_bytes(b"\xff\xd8")
-    write_png(str(tmp_path / "b.png"), np.zeros((H, W, 3), np.uint8))
     tool = _tool("demo")
-    common = ["--device", "cpu", "--cfg", MONO_YAML, "--output", str(tmp_path / "out"), "MODEL.WEIGHTS",
-              mono_run["run_dir"]]
-    with pytest.raises(SystemExit, match="cv2"):
-        tool.main(["--input", str(tmp_path / "a.jpg"), *common])
-    with pytest.raises(SystemExit, match="cv2"):
-        tool.main(["--input", str(tmp_path / "b.png"), "--video", *common])
-    assert not os.path.exists(tmp_path / "out")
+    common = ["--device", "cpu", "--cfg", MONO_YAML, *map(str, TINY), "MODEL.WEIGHTS", mono_run["run_dir"]]
+    if case == "video_refused":
+        write_png(str(tmp_path / "b.png"), np.zeros((H, W, 3), np.uint8))
+        with pytest.raises(SystemExit, match="cv2"):
+            tool.main(["--input", str(tmp_path / "b.png"), "--output", str(tmp_path / "out"), "--video", *common])
+        assert not os.path.exists(tmp_path / "out")
+        return
+    jpegs, pngs = tmp_path / "jpeg", tmp_path / "png"
+    jpegs.mkdir()
+    pngs.mkdir()
+    rng = np.random.RandomState(4)
+    for i in range(2):
+        Image.fromarray(rng.randint(0, 256, (H, W, 3)).astype(np.uint8)).save(str(jpegs / f"{i}.jpg"))
+        write_png(str(pngs / f"{i}.png"), read_jpeg(str(jpegs / f"{i}.jpg")))
+    from_jpeg = tool.main(["--input", str(jpegs), "--output", str(tmp_path / "out_jpeg"), *common])
+    from_png = tool.main(["--input", str(pngs), "--output", str(tmp_path / "out_png"), *common])
+    assert [os.path.basename(p) for p in from_jpeg] == [os.path.basename(p) for p in from_png] == ["0.png", "1.png"]
+    for a, b in zip(from_jpeg, from_png):
+        panel = read_png(a)
+        assert panel.shape == (2 * H, W, 3)
+        np.testing.assert_array_equal(panel, read_png(b))

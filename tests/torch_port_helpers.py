@@ -278,3 +278,80 @@ def make_sup_batch(seed=0, B=2, H=64, W=96, flip=None):
     K[:, 0, 0] *= 1.0 + 0.1 * np.arange(B, dtype=np.float32)  # focals differ between the samples
     return {"img": img, "depth": depth, "intrinsics": K,
             "flip": np.zeros((B,), bool) if flip is None else np.asarray(flip, bool)}
+
+
+WAYMO_HW = (1280, 1920)  # a Waymo FRONT frame
+WAYMO_FOCAL, WAYMO_CENTER = 2055.5, (939.7, 641.1)  # f, (cx, cy) of a FRONT camera
+
+
+def waymo_depth_image(rng, hw=WAYMO_HW, n_points=60000, focal=WAYMO_FOCAL, center=WAYMO_CENTER):
+    """A sparse camera-Z depth map of a seeded lidar-like point cloud (vehicle
+    frame: x forward, 4-80 m), made as the extraction tool makes it: the port's
+    ``project_points_to_camera`` for a camera 1.5 m ahead of and 2.1 m above the
+    vehicle's origin, pixels rounded, ``scatter_depth_image``. uint16 x255."""
+    from simpledepthestimation_tpu_torch.data.datasets import waymo_extract as wx
+
+    pts = np.stack([rng.uniform(4, 80, n_points), rng.uniform(-30, 30, n_points),
+                    rng.uniform(-2.1, 3.0, n_points)], axis=-1)
+    extrinsic = np.eye(4)
+    extrinsic[:3, 3] = [1.5, 0.0, 2.1]
+    u, v, depth = wx.project_points_to_camera(pts, extrinsic, wx.intrinsic_matrix4(focal, focal, *center))
+    return wx.encode_depth_png(wx.scatter_depth_image(hw[0], hw[1], np.round(u), np.round(v), depth))
+
+
+def make_waymo_tree(root, n_frames=8, n_val=40, hw=WAYMO_HW, seed=0):
+    """An extracted Waymo tree as ``tools/extract_waymo_data.py`` lays it out:
+    ``image/seg-a/{i:05d}/FRONT.jpg`` (smooth colour fields, 4:2:0 JPEG written
+    with Pillow), ``depth/.../FRONT_depth.png`` (``waymo_depth_image``, written
+    with ``cv2.imwrite``) and ``mask/.../FRONT_mask.png`` (8-bit, 0/255 blobs),
+    for ``n_frames`` frames of one segment; and three infos pickles built with
+    the port's ``build_frame_info``/``assemble_infos``: ``train.pkl`` (the
+    frames), ``pair.pkl`` (the first two) and ``val.pkl`` (``n_val`` records of
+    a second segment whose directories cycle through the frames, so that
+    ``DOWNSAMPLE: 20`` keeps ``n_val // 20`` of them). Returns the paths."""
+    import pickle
+
+    import cv2
+    from PIL import Image
+
+    from simpledepthestimation_tpu_torch.data.datasets import waymo_extract as wx
+
+    rng = np.random.default_rng(seed)
+    H, W = hw
+    K = np.array([[WAYMO_FOCAL, 0, WAYMO_CENTER[0]], [0, WAYMO_FOCAL, WAYMO_CENTER[1]], [0, 0, 1]], np.float32)
+    calib = {"FRONT": {"intrinsics": K, "extrinsics": np.eye(4, dtype=np.float32)}}
+    paths = {k: os.path.join(root, k) for k in ("image", "depth", "mask")}
+    frames = []
+    for i in range(n_frames):
+        rel = os.path.join("seg-a", f"{i:05d}")
+        for d in paths.values():
+            os.makedirs(os.path.join(d, rel), exist_ok=True)
+        low = rng.random((H // 32 + 2, W // 32 + 2, 3)).astype(np.float32)
+        img = (cv2.resize(low, (W, H), interpolation=cv2.INTER_CUBIC).clip(0, 1) * 255).astype(np.uint8)
+        Image.fromarray(img).save(os.path.join(paths["image"], rel, "FRONT.jpg"), quality=90, subsampling=2)
+        cv2.imwrite(os.path.join(paths["depth"], rel, "FRONT_depth.png"), waymo_depth_image(rng, hw))
+        mask = (cv2.resize(rng.random((H // 64, W // 64)).astype(np.float32), (W, H)) > 0.7).astype(np.uint8) * 255
+        cv2.imwrite(os.path.join(paths["mask"], rel, "FRONT_mask.png"), mask)
+        frames.append(wx.build_frame_info("seg-a", i, rel, calib))
+    val = [wx.build_frame_info("seg-v", j, frames[j % n_frames]["rel_dir"], calib) for j in range(n_val)]
+    infos = {"train": wx.assemble_infos([frames[::-1]]), "pair": wx.assemble_infos([frames[:2]]),
+             "val": wx.assemble_infos([val])}
+    for name, payload in infos.items():
+        paths[name] = os.path.join(root, f"{name}.pkl")
+        with open(paths[name], "wb") as f:
+            pickle.dump(payload, f)
+    return paths
+
+
+def waymo_overrides(paths, family):
+    """KEY VALUE pairs pointing ``Base_waymo.yaml``'s loaders of ``family`` at a
+    ``make_waymo_tree`` tree: TRAIN reads ``train.pkl`` (Supervised:
+    ``pair.pkl``), TEST ``val.pkl``."""
+    train_split = paths["pair" if family == "Supervised" else "train"]
+    opts = []
+    for split, infos in (("TRAIN", train_split), ("TEST", paths["val"])):
+        opts += [f"DATASETS.{split}.DATA_ROOT", paths["image"], f"DATASETS.{split}.DEPTH_ROOT", paths["depth"],
+                 f"DATASETS.{split}.SPLIT", infos]
+    if family == "MotionLearning":
+        opts += ["DATASETS.TRAIN.MASK_ROOT", paths["mask"]]
+    return opts

@@ -5,9 +5,11 @@ The twin of ``demo.py`` (which drives the JAX package): the config's test
 preprocess, the model per image (``DefaultPredictor``: the checkpoint of
 ``MODEL.WEIGHTS`` or ``OUTPUT_DIR``), the preprocess undone to the original
 frame, the depth coloured with magma under the frame, one panel per image.
-PNG frames are read and the panels written without OpenCV (``data/png.py``);
-JPEG frames and ``--video`` need OpenCV (``cv2``) and are refused where it
-does not import. It runs on the CUDA card; ``--device cpu`` runs it on the CPU.
+PNG and JPEG frames are read as ``LoadImg`` reads them (``data/png.py``,
+``data/jpeg.py``: by content, not by name) and the panels written as PNG
+(``<frame name>.png``), without OpenCV; ``--video`` needs OpenCV (``cv2``) and
+is refused where it does not import. It runs on the CUDA card; ``--device
+cpu`` runs it on the CPU.
 
 Usage:
   python tools/demo_torch.py --cfg <config.yaml> --input img_or_dir --output out_dir \
@@ -24,7 +26,8 @@ sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), ".."
 import numpy as np  # noqa: E402
 
 from simpledepthestimation_tpu_torch.config import get_cfg  # noqa: E402
-from simpledepthestimation_tpu_torch.data.png import read_png, write_png  # noqa: E402
+from simpledepthestimation_tpu_torch.data.png import write_png  # noqa: E402
+from simpledepthestimation_tpu_torch.data.preprocess.loading import LoadImg  # noqa: E402
 from simpledepthestimation_tpu_torch.engine.trainer import DefaultPredictor  # noqa: E402
 from simpledepthestimation_tpu_torch.models.build import resolve_device  # noqa: E402
 from simpledepthestimation_tpu_torch.utils.colormap import magma_u8  # noqa: E402
@@ -44,12 +47,12 @@ def parse_args(argv=None):
     return p.parse_args(argv)
 
 
-def _opencv(what: str):
+def _opencv():
     try:
         import cv2
     except ImportError as e:
-        raise SystemExit(f"demo_torch: {what} needs OpenCV (cv2), which does not import here ({e}); "
-                         "PNG frames need nothing more") from e
+        raise SystemExit(f"demo_torch: --video needs OpenCV (cv2), which does not import here ({e}); "
+                         "the panels need nothing more") from e
     return cv2
 
 
@@ -60,11 +63,7 @@ def main(argv=None):
     files = [f for f in files if f.lower().endswith((".png",) + JPEG)]
     if not files:
         raise SystemExit(f"demo_torch: no images found at {args.input}")
-    cv2 = None
-    if args.video:
-        cv2 = _opencv("--video")
-    if any(f.lower().endswith(JPEG) for f in files):
-        cv2 = _opencv("reading JPEG frames")
+    cv2 = _opencv() if args.video else None
     device = resolve_device(args.device)
 
     cfg = get_cfg()
@@ -77,22 +76,16 @@ def main(argv=None):
     os.makedirs(args.output, exist_ok=True)
     frames, written = [], []
     for path in files:
-        if path.lower().endswith(JPEG):
-            img = cv2.cvtColor(cv2.imread(path), cv2.COLOR_BGR2RGB)
-        else:
-            img = read_png(path)
-            if img.dtype != np.uint8 or img.ndim != 3:
-                raise SystemExit(f"demo_torch: {path} is not an 8-bit colour PNG")
-            img = img[..., :3]  # an alpha channel is dropped, as OpenCV's imread does
+        try:
+            img = LoadImg._load(path)
+        except ValueError as e:
+            raise SystemExit(f"demo_torch: {e}") from e
         pred = predictor(img)
 
         norm = (pred - pred.min()) / (pred.max() - pred.min() + 1e-9)
         panel = np.concatenate([img, magma_u8(norm)], axis=0)
-        out_path = os.path.join(args.output, os.path.basename(path))
-        if path.lower().endswith(JPEG):
-            cv2.imwrite(out_path, cv2.cvtColor(panel, cv2.COLOR_RGB2BGR))
-        else:
-            write_png(out_path, panel)
+        out_path = os.path.join(args.output, os.path.splitext(os.path.basename(path))[0] + ".png")
+        write_png(out_path, panel)
         frames.append(panel)
         written.append(out_path)
         print(f"wrote {out_path}")
