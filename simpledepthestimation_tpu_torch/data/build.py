@@ -19,6 +19,7 @@ from typing import Any, Dict, List, Optional
 import numpy as np
 import torch
 
+from ..parallel import mesh
 from ..utils import comm
 from ..utils.registry import Registry
 from .loader import PrefetchLoader
@@ -115,10 +116,8 @@ def build_train_loader(cfg, seed: int = 0, pin_memory: bool = False) -> Prefetch
     dataset = DATASET_REGISTRY.get(cfg.DATASETS.TRAIN.NAME)(cfg.DATASETS.TRAIN, cfg)
     assert isinstance(dataset, DatasetBase)
 
-    total_batch = int(cfg.SOLVER.IMS_PER_BATCH)
+    batch_size = mesh.local_batch_size(int(cfg.SOLVER.IMS_PER_BATCH))
     world = comm.get_world_size()
-    if total_batch % world:
-        raise ValueError(f"IMS_PER_BATCH={total_batch} must be divisible by world size {world}")
 
     sampler_name = cfg.DATALOADER.SAMPLER_TRAIN
     logger.info(f"Using training sampler {sampler_name}")
@@ -130,7 +129,7 @@ def build_train_loader(cfg, seed: int = 0, pin_memory: bool = False) -> Prefetch
         raise ValueError(f"Unknown training sampler: {sampler_name}")
 
     return PrefetchLoader(
-        dataset, sampler, batch_size=total_batch // world, drop_last=True,
+        dataset, sampler, batch_size=batch_size, drop_last=True,
         num_workers=int(cfg.DATALOADER.NUM_WORKERS), prefetch=int(cfg.DATALOADER.get("PREFETCH", 2)),
         seed=seed, pin_memory=pin_memory,
     )

@@ -1,5 +1,7 @@
 from .checkpoint import Checkpointer, PeriodicCheckpointer, load_weights
-from .defaults import assemble_cfg, default_argument_parser, default_setup, default_writers, simple_main
+from .defaults import (
+    assemble_cfg, default_argument_parser, default_setup, default_writers, maybe_init_distributed, simple_main,
+)
 from .export import build_inference_fn, export_inference, load_exported
 from .runtime import do_test, do_train, restore_inference_state
 from .train_loop import HookBase, SimpleTrainer, TrainerBase
@@ -10,6 +12,7 @@ __all__ = [
     "default_setup",
     "default_writers",
     "assemble_cfg",
+    "maybe_init_distributed",
     "simple_main",
     "Checkpointer",
     "PeriodicCheckpointer",

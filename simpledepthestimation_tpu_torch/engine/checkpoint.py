@@ -14,6 +14,11 @@ resumed run needs to continue exactly as an uninterrupted one would:
   (RandLayerNorm);
 - ``epoch``: the last finished epoch.
 
+In several processes rank 0 writes the file (every rank holds the same state)
+and every rank then waits at a barrier, so that none reads or resumes from a
+file being written; every rank reads on resume. The JAX package has every
+process take part in Orbax's save; the port's checkpoint is one file.
+
 Loading is non-strict, as the JAX package's is: where the stored model and
 the live one differ, the tensors present in both with equal shapes are
 loaded, the rest are logged as missing or unexpected, and the optimizer is
@@ -29,6 +34,7 @@ from typing import Any, Dict, List, Optional, Tuple
 import torch
 
 from ..parallel.train_step import TrainState
+from ..utils import comm
 
 logger = logging.getLogger(__name__)
 
@@ -69,6 +75,15 @@ class Checkpointer:
 
     # -- save --------------------------------------------------------------
     def save(self, epoch: int, state: TrainState) -> str:
+        """Write the checkpoint of ``epoch`` (rank 0), then wait for every rank."""
+        name = f"model_{epoch:04d}.pth"
+        path = os.path.join(self.directory, name)
+        if comm.is_main_process():
+            self._write(epoch, state, name, path)
+        comm.synchronize()
+        return path
+
+    def _write(self, epoch: int, state: TrainState, name: str, path: str) -> None:
         payload = {
             "model": state.model.state_dict(),
             "optimizer": state.optimizer.state_dict(),
@@ -77,14 +92,11 @@ class Checkpointer:
             "noise_generator": state.noise_generator.get_state(),
             "epoch": int(epoch),
         }
-        name = f"model_{epoch:04d}.pth"
-        path = os.path.join(self.directory, name)
         torch.save(payload, path + ".tmp")
         os.replace(path + ".tmp", path)
         with open(os.path.join(self.directory, _LAST), "w") as f:
             f.write(name)
         logger.info(f"Saved checkpoint at epoch {epoch} to {path}")
-        return path
 
     # -- load --------------------------------------------------------------
     def latest(self) -> Optional[str]:

@@ -6,9 +6,13 @@ overrides, ``RUN_NAME`` from the config's path (``{project}_{cfgname}``),
 ``OUTPUT_DIR`` nested under it, the merged config written to
 ``OUTPUT_DIR/config.yaml`` and the log to ``OUTPUT_DIR/log.txt``. One more
 argument, ``--device`` (the card by default; ``cpu`` for a run on the CPU),
-takes the place of the JAX package's ``JAX_PLATFORMS`` handling. The
-multi-process arguments are kept and refused above one process until the
-port has its distributed runtime (``ROADMAP.md`` A17).
+takes the place of the JAX package's ``JAX_PLATFORMS`` handling.
+
+Several processes: ``--coordinator host:port --num-processes N --process-id
+i`` start one process of N (:func:`maybe_init_distributed`), one per card
+(consecutive ids on one host take consecutive cards) or, with ``--device
+cpu``, on the CPU; the coordinator is process 0's address. NCCL joins the
+cards, gloo the CPU processes.
 """
 
 from __future__ import annotations
@@ -17,6 +21,8 @@ import argparse
 import logging
 import os
 from typing import Callable, Optional
+
+import torch
 
 from ..config import CfgNode, get_cfg
 from ..models.build import resolve_device
@@ -38,14 +44,37 @@ def default_argument_parser(epilog: Optional[str] = None) -> argparse.ArgumentPa
     parser.add_argument("--resume", action="store_true", help="resume from the checkpoint directory (if any)")
     parser.add_argument("--eval", action="store_true", help="evaluate only")
     parser.add_argument("--device", default="cuda", help="torch device to run on (default: the CUDA card)")
-    parser.add_argument("--coordinator", default="", help="rendezvous address of a multi-process run (not yet)")
-    parser.add_argument("--num-processes", type=int, default=1, help="number of processes (1 only, for now)")
-    parser.add_argument("--process-id", type=int, default=0, help="this process's index")
+    parser.add_argument("--coordinator", default="",
+                        help="host:port of process 0, where the processes of a multi-process run meet")
+    parser.add_argument("--num-processes", type=int, default=1, help="number of processes, one per card")
+    parser.add_argument("--process-id", type=int, default=0, help="this process's index, 0 .. num-processes - 1")
     parser.add_argument(
         "opts", help="Modify config options at the end of the command: KEY VALUE pairs",
         default=None, nargs=argparse.REMAINDER,
     )
     return parser
+
+
+def maybe_init_distributed(args) -> torch.device:
+    """The device of this process, and the process group of a run of several
+    (``--coordinator`` and ``--num-processes`` above 1): NCCL on CUDA, after
+    ``torch.cuda.set_device`` of this process's card
+    (:func:`..utils.comm.local_rank_of`), gloo on the CPU. A group that the
+    caller made already is kept. Without a CUDA device ``--device cuda``
+    raises, as on one process."""
+    device = resolve_device(args.device)
+    if args.num_processes > 1 and not args.coordinator:
+        raise ValueError(f"--num-processes {args.num_processes} needs --coordinator host:port (process 0's)")
+    if not (args.coordinator and args.num_processes > 1) or comm.is_initialized():
+        return device
+    if not 0 <= args.process_id < args.num_processes:
+        raise ValueError(f"--process-id {args.process_id} is not in 0 .. {args.num_processes - 1}")
+    if device.type == "cuda":
+        device = torch.device("cuda", comm.local_rank_of(args.process_id))
+        torch.cuda.set_device(device)
+    comm.init_process_group(f"tcp://{args.coordinator}", world_size=args.num_processes, rank=args.process_id,
+                            backend="nccl" if device.type == "cuda" else "gloo")
+    return device
 
 
 def assemble_cfg(args) -> CfgNode:
@@ -112,11 +141,10 @@ def default_writers(output_dir: str, max_iter: Optional[int] = None):
 
 
 def simple_main(args, train_fn: Callable, test_fn: Optional[Callable] = None):
-    """cfg assembly → set-up → evaluation alone (``--eval``) or training.
-    ``train_fn`` and ``test_fn`` take ``(cfg, resume=, device=)``."""
-    if args.num_processes > 1 or args.coordinator:
-        raise NotImplementedError("training in several processes is not ported yet: ROADMAP.md A17")
-    device = resolve_device(args.device)
+    """Process group (several processes) → cfg assembly → set-up → evaluation
+    alone (``--eval``) or training. ``train_fn`` and ``test_fn`` take
+    ``(cfg, resume=, device=)``."""
+    device = maybe_init_distributed(args)
     cfg = assemble_cfg(args)
     default_setup(cfg, args)
     if args.eval and test_fn is not None:

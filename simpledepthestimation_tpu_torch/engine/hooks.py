@@ -20,6 +20,8 @@ from typing import Callable
 
 import torch
 
+from ..models.norm_layers import BatchNorm2d
+from ..parallel import mesh
 from ..parallel.train_step import compute_precise_bn_stats
 from ..utils import comm
 from ..utils.events import write_all
@@ -143,12 +145,13 @@ class PreciseBN(HookBase):
     statistics. Registered before the checkpointer and ``EvalHook``.
 
     The batches come from a fresh pass over ``loader`` (the epoch that just
-    ended), moved to ``device``. One process only: the JAX package averages
-    the statistics over processes, which the port cannot run yet."""
+    ended), moved to ``device``. In several processes, as in the JAX package,
+    each rank computes the statistics of its own loader shard (the forwards
+    run per rank, without collectives: ``compute_precise_bn_stats``), and
+    :func:`average_over_ranks` replaces them by their mean over ranks, equal to
+    the bit on every rank."""
 
     def __init__(self, period_epochs: int, steps_per_epoch: int, loader, num_iter: int, device: torch.device):
-        if comm.get_world_size() > 1:
-            raise NotImplementedError("PreciseBN over several processes is not ported yet: ROADMAP.md A17")
         self._period = period_epochs
         self._steps_per_epoch = max(steps_per_epoch, 1)
         self._loader = loader
@@ -167,6 +170,7 @@ class PreciseBN(HookBase):
             n = compute_precise_bn_stats(self.trainer.state, batches)
         finally:
             source.close()
+        average_over_ranks(self.trainer.state.model)
         if n == 0:
             logger.info("PreciseBN: the model has no BatchNorm; hook disabled")
             self._disabled = True
@@ -177,6 +181,23 @@ class PreciseBN(HookBase):
         it = self.trainer.iter + 1
         if it == self.trainer.max_iter or it % (self._period * self._steps_per_epoch) == 0:
             self._update_stats()
+
+
+def average_over_ranks(model: torch.nn.Module) -> None:
+    """Replace the running statistics of every BatchNorm of ``model`` by their
+    mean over ranks (one all-reduce of all of them); nothing on one process.
+    Every rank calls it, after the same number of recalibration forwards."""
+    if not mesh.is_multiprocess():
+        return
+    stats = [t for m in model.modules() if isinstance(m, BatchNorm2d) for t in (m.running_mean, m.running_var)]
+    if not stats:
+        return
+    flat = mesh.all_reduce_sum(torch.cat([t.reshape(-1) for t in stats]))
+    flat /= comm.get_world_size()
+    offset = 0
+    for t in stats:
+        t.copy_(flat[offset:offset + t.numel()].view_as(t))
+        offset += t.numel()
 
 
 class EvalHook(HookBase):

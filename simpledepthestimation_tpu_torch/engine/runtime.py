@@ -1,9 +1,12 @@
 """The training and evaluation loops behind the project entry points.
 
-The port's counterpart of ``simpledepthestimation_tpu/engine/runtime.py`` for
-one process on one GPU: an epoch loop over the train loader, a checkpoint
-every ``SOLVER.CHECKPOINT_PERIOD`` epochs, the KITTI evaluation every
-``TEST.EVAL_PERIOD`` epochs, ``--resume`` and evaluation alone.
+The port's counterpart of ``simpledepthestimation_tpu/engine/runtime.py``: an
+epoch loop over the train loader, a checkpoint every
+``SOLVER.CHECKPOINT_PERIOD`` epochs, the KITTI evaluation every
+``TEST.EVAL_PERIOD`` epochs, ``--resume`` and evaluation alone, in one process
+or several (``parallel/mesh.py``: each rank steps on its rows of the global
+batch, evaluates its shard of the test set, and rank 0 writes the metrics and
+the checkpoints).
 
 Everything runs on the CUDA device unless the caller names another one
 (``device="cpu"``, as the tests do); without a CUDA device the entry points
@@ -19,9 +22,11 @@ batch's first frame goes to the storage as a magma panel
 ``TEST.ASYNC``: each epoch-end evaluation runs on one worker thread, on a copy
 of the model taken after the epoch's checkpoint, while the next epoch trains;
 at most one is in flight, and its row is logged from the loop's thread.
-
-Not in this package yet, and refused with ``NotImplementedError`` where a
-config asks for it: training in several processes (``ROADMAP.md`` A17).
+Above one process, as in the JAX package, ``VIS_PERIOD`` is off (the panel is
+rank 0's alone) and ``TEST.ASYNC`` evaluates synchronously (a second thread
+issuing collectives could interleave them differently on each rank). After
+the state is made and after a resume, the parameters and buffers are checked
+equal on every rank (``mesh.check_replicas_agree``).
 """
 
 from __future__ import annotations
@@ -43,6 +48,7 @@ import torch
 from ..data import build_test_loader, build_train_loader
 from ..evaluation import DatasetEvaluators, build_evaluator, inference_on_dataset
 from ..models.build import build_model, resolve_device
+from ..parallel import mesh
 from ..parallel.train_step import TrainState, create_train_state, make_eval_step, make_train_step
 from ..solver.build import build_optimizer
 from ..utils import comm
@@ -57,10 +63,17 @@ Copy = Optional[Tuple[torch.cuda.Event, torch.cuda.Event]]
 
 
 def check_supported(cfg) -> None:
-    """Raise for what a config may ask of the JAX package's runtime that this
-    one does not do yet, rather than ignore it."""
-    if comm.get_world_size() > 1:
-        raise NotImplementedError("training in several processes is not ported yet: ROADMAP.md A17")
+    """Raise for what a config asks that this runtime cannot do, rather than
+    run something else: a global batch (``SOLVER.IMS_PER_BATCH``) that does
+    not split evenly among the processes."""
+    mesh.local_batch_size(int(cfg.SOLVER.IMS_PER_BATCH))
+
+
+def multiprocess_options(cfg) -> Tuple[bool, int]:
+    """``(TEST.ASYNC, VIS_PERIOD)`` as the loop runs them: both off above one
+    process (the JAX package's ``engine/runtime.py``)."""
+    single = not mesh.is_multiprocess()
+    return (bool(cfg.TEST.get("ASYNC", False)) and single, int(cfg.get("VIS_PERIOD", 0)) if single else 0)
 
 
 def _tensors(batch: Dict) -> Dict[str, torch.Tensor]:
@@ -144,7 +157,6 @@ def do_test(cfg, state: Optional[TrainState] = None, eval_step=None, device: Dev
     """Evaluate ``state`` (or, with none, the newest checkpoint in
     ``OUTPUT_DIR``, else ``MODEL.WEIGHTS``) on the test loader with
     ``cfg.EVALUATORS``; returns ``{evaluator tag: {metric: value}}``."""
-    check_supported(cfg)
     loader = build_test_loader(cfg)
     if loader is None:
         logger.info("No test dataset configured; skipping eval")
@@ -223,17 +235,18 @@ def do_train(
     train_step = make_train_step(state, grad_clip=float(cfg.SOLVER.get("GRAD_CLIP", 0.0)), schedule_fn=schedule_fn,
                                  remat=bool(cfg.TPU.get("REMAT", False)))
 
+    mesh.check_replicas_agree(state.model, "the initial model")
     checkpointer = Checkpointer(cfg.OUTPUT_DIR)
     state, start_epoch = checkpointer.resume_or_load(str(cfg.MODEL.WEIGHTS), state, resume=resume)
+    mesh.check_replicas_agree(state.model, "the restored model")
     periodic_ckpt = PeriodicCheckpointer(checkpointer, int(cfg.SOLVER.CHECKPOINT_PERIOD), max_epochs)
 
     writers = default_writers(cfg.OUTPUT_DIR, max_iter) if comm.is_main_process() else []
     log_period = int(cfg.LOG_PERIOD)
     eval_period = int(cfg.TEST.EVAL_PERIOD)
-    vis_period = int(cfg.get("VIS_PERIOD", 0))
+    async_eval, vis_period = multiprocess_options(cfg)
+    async_eval = async_eval and eval_period > 0
     eval_step = make_eval_step(state)  # the evaluations' and the panels'
-    # one process only (check_supported): two threads issuing collectives could interleave
-    async_eval = bool(cfg.TEST.get("ASYNC", False)) and eval_period > 0
     eval_pool = ThreadPoolExecutor(max_workers=1, thread_name_prefix="async-eval") if async_eval else None
     pending_eval: Optional[Tuple[int, Future]] = None  # (step at submission, future)
     eval_log_iter = -1  # the last iteration an asynchronous evaluation row was logged at
@@ -310,7 +323,7 @@ def do_train(
 
                 step += 1
                 storage.iter = step
-                if vis_period > 0 and step % vis_period == 0 and comm.is_main_process():
+                if vis_period > 0 and step % vis_period == 0:
                     depth = eval_step({"img": batch["img"][:1]})[0, 0].float().cpu().numpy()
                     storage.put_image_with_cmap("train/depth_pred", depth, cmap="magma")
                     frame = batch["img"][0].permute(1, 2, 0).cpu().numpy()  # CHW -> HWC

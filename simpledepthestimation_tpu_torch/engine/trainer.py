@@ -14,7 +14,10 @@ schedule in the batch, so a MotionLearning config trains with the model's
 defaults, noise 0 and motion weight 1 from the first step. The train step,
 its noise generator and the batches are ``do_train``'s, so the two paths give
 the same trajectory. Everything runs on the CUDA device unless the caller
-names another (``device="cpu"``); without one it raises.
+names another (``device="cpu"``); without one it raises. In several processes
+``auto_scale_workers`` takes the world size, the writers are rank 0's, each
+rank runs every other hook (PreciseBN averages over ranks, the checkpoint is
+rank 0's file behind a barrier, the evaluation gathers to rank 0).
 """
 
 from __future__ import annotations
@@ -29,6 +32,7 @@ from ..config import CfgNode
 from ..data import build_train_loader
 from ..data.preprocess import build_preprocess
 from ..models.build import resolve_device
+from ..parallel import mesh
 from ..parallel.train_step import create_train_state, make_eval_step, make_train_step
 from ..utils import comm
 from . import hooks as hooks_lib
@@ -42,8 +46,8 @@ logger = logging.getLogger(__name__)
 
 class DefaultTrainer(SimpleTrainer):
     def __init__(self, cfg: CfgNode, device: Device = None):
-        check_supported(cfg)
         cfg = DefaultTrainer.auto_scale_workers(cfg, comm.get_world_size())
+        check_supported(cfg)
         self.cfg = cfg
         self.device = resolve_device(device)
 
@@ -53,6 +57,7 @@ class DefaultTrainer(SimpleTrainer):
         self._max_iter = self.steps_per_epoch * int(cfg.SOLVER.MAX_EPOCHS)
 
         state = create_train_state(cfg, device=self.device, steps_per_epoch=self.steps_per_epoch, warm_start=False)
+        mesh.check_replicas_agree(state.model, "the initial model")
         self.model = state.model
         self.lr_schedule = state.scheduler.schedules[0]
         step_fn = make_train_step(state, grad_clip=float(cfg.SOLVER.get("GRAD_CLIP", 0.0)),
@@ -79,6 +84,7 @@ class DefaultTrainer(SimpleTrainer):
     def resume_or_load(self, resume: bool = True) -> None:
         self.state, self.start_epoch = self.checkpointer.resume_or_load(
             str(self.cfg.MODEL.WEIGHTS), self.state, resume=resume)
+        mesh.check_replicas_agree(self.state.model, "the restored model")
 
     def build_hooks(self):
         cfg = self.cfg
@@ -89,13 +95,13 @@ class DefaultTrainer(SimpleTrainer):
         if bool(precise_bn.get("ENABLED", False)) and int(cfg.TEST.EVAL_PERIOD) > 0:
             ret.append(hooks_lib.PreciseBN(int(cfg.TEST.EVAL_PERIOD), self.steps_per_epoch, self.loader,
                                            int(precise_bn.get("NUM_ITER", 200)), self.device))
-        if comm.is_main_process():
-            pc = PeriodicCheckpointer(self.checkpointer, int(cfg.SOLVER.CHECKPOINT_PERIOD), int(cfg.SOLVER.MAX_EPOCHS))
-            ret.append(hooks_lib.PeriodicCheckpointerHook(pc, self.steps_per_epoch))
+        # on every rank: rank 0 writes, and every rank waits for the file (Checkpointer.save)
+        pc = PeriodicCheckpointer(self.checkpointer, int(cfg.SOLVER.CHECKPOINT_PERIOD), int(cfg.SOLVER.MAX_EPOCHS))
+        ret.append(hooks_lib.PeriodicCheckpointerHook(pc, self.steps_per_epoch))
         if int(cfg.TEST.EVAL_PERIOD) > 0:
             ret.append(hooks_lib.EvalHook(int(cfg.TEST.EVAL_PERIOD), self.steps_per_epoch, self._eval))
         profile_iters = set(int(i) for i in cfg.TPU.get("PROFILE_ITERS", ()))
-        if profile_iters:
+        if profile_iters and comm.is_main_process():  # one trace file: rank 0's
             ret.append(hooks_lib.TorchProfiler(lambda trainer: trainer.iter in profile_iters, cfg.OUTPUT_DIR,
                                                self.device))
         if comm.is_main_process():

@@ -14,6 +14,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from .norm_layers import Conv2d, GroupNorm
+from ..parallel import mesh
 
 
 def disp_to_depth(disp: torch.Tensor, min_depth: float, max_depth: float):
@@ -112,7 +113,10 @@ class RandLayerNorm(nn.Module):
     (zeros) of ``channels``. The noise is drawn only when ``train`` is true and
     a ``generator`` is given (on ``x``'s device): normals of ``x``'s dtype,
     first for the mean, then for the variance. Nothing is drawn from the
-    global random state."""
+    global random state. In a run of several processes every rank draws the
+    noise of the global batch from its generator (seeded alike on every rank)
+    and keeps its own rows (``parallel.mesh.rank_rows``), so that the noise of
+    a sample does not depend on the world size."""
 
     def __init__(self, channels: int, eps: float = 1e-3):
         super().__init__()
@@ -125,7 +129,7 @@ class RandLayerNorm(nn.Module):
                 generator: Optional[torch.Generator] = None) -> torch.Tensor:
         noise_m = noise_v = None
         if train and generator is not None:
-            shape = (x.shape[0], x.shape[1], 1, 1)
-            noise_m = torch.randn(shape, generator=generator, device=x.device).to(x.dtype)
-            noise_v = torch.randn(shape, generator=generator, device=x.device).to(x.dtype)
+            shape = (mesh.global_rows(x.shape[0]), x.shape[1], 1, 1)
+            noise_m = mesh.rank_rows(torch.randn(shape, generator=generator, device=x.device)).to(x.dtype)
+            noise_v = mesh.rank_rows(torch.randn(shape, generator=generator, device=x.device)).to(x.dtype)
         return rand_layer_norm(x, self.weight, self.bias, stddev, noise_m, noise_v, self.eps)

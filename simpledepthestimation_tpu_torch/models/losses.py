@@ -5,6 +5,11 @@ SSIM (plain and proximity-weighted), photometric, smoothness and the motion
 terms (cycle consistency, motion smoothness, L0.5 sparsity). Boolean-mask
 indexing is a fixed-shape masked mean (an empty mask gives 0, not NaN).
 Everything runs in float32.
+
+Every reduction over the batch is global in a run of several processes: the
+mean over the global batch, through ``parallel.mesh`` (its module docstring
+states the rule). Per-sample reductions (over H, W or channels) stay on the
+rank. Without a process group each is the plain expression it was.
 """
 
 from __future__ import annotations
@@ -17,15 +22,16 @@ from ..geometry.pose import matmul3
 from ..ops.photometric import ssim_distance
 from ..ops.pool import avg_pool_3x3_reflect, avg_pool_3x3_same
 from ..ops.resample import resample_bilinear_image_grad
+from ..parallel import mesh
 
 
 def masked_mean(x: torch.Tensor, mask: torch.Tensor, dim=None) -> torch.Tensor:
-    """Mean of x over positions where mask is True; 0 if mask is empty."""
-    mask = mask.to(x.dtype)
+    """Mean of x over positions where mask is True; 0 if mask is empty. Over
+    the global batch where ``dim`` is None."""
     if dim is None:
-        total, count = (x * mask).sum(), mask.sum()
-    else:
-        total, count = (x * mask).sum(dim=dim), mask.sum(dim=dim)
+        return mesh.global_masked_means([x], mask)[0]
+    mask = mask.to(x.dtype)
+    total, count = (x * mask).sum(dim=dim), mask.sum(dim=dim)
     return total / count.clamp_min(1.0)
 
 
@@ -36,14 +42,13 @@ def silog_loss(depth_est: torch.Tensor, depth_gt: torch.Tensor, variance_focus: 
     safe_est = depth_est.clamp_min(1e-12)
     safe_gt = depth_gt.clamp_min(1e-12)
     d = torch.where(mask, torch.log(safe_est) - torch.log(safe_gt), torch.zeros_like(safe_est))
-    mean_d2 = masked_mean(d * d, mask)
-    mean_d = masked_mean(d, mask)
+    mean_d2, mean_d = mesh.global_masked_means([d * d, d], mask)
     return torch.sqrt((mean_d2 - variance_focus * mean_d**2).clamp_min(1e-12)) * 10.0
 
 
 def variance_loss(depth: torch.Tensor) -> torch.Tensor:
     """Inverse relative-variance penalty (a plain mean of squares: no ddof)."""
-    return 1.0 / ((depth / depth.mean() - 1.0) ** 2).mean()
+    return 1.0 / mesh.global_mean((depth / mesh.global_mean(depth) - 1.0) ** 2)
 
 
 def ssim(x: torch.Tensor, y: torch.Tensor, C1: float = 1e-4, C2: float = 9e-4) -> torch.Tensor:
@@ -103,7 +108,8 @@ def photometric_loss(
         loss = l1
     if clip > 0.0:
         # torch.std is unbiased by default: the ddof=1 of the JAX package
-        loss = torch.minimum(loss, loss.mean() + clip * loss.std())
+        mean, std = mesh.global_mean_std(loss)
+        loss = torch.minimum(loss, mean + clip * std)
     return loss
 
 
@@ -134,7 +140,8 @@ def smoothness_loss(depth: torch.Tensor, image: torch.Tensor, reversed: bool = F
     wx = torch.exp(-i_gx.abs().mean(dim=1, keepdim=True))
     wy = torch.exp(-i_gy.abs().mean(dim=1, keepdim=True))
 
-    return (d_gx * wx).abs().mean() + (d_gy * wy).abs().mean()
+    mean_x, mean_y = mesh.global_means([(d_gx * wx).abs(), (d_gy * wy).abs()])
+    return mean_x + mean_y
 
 
 def motion_consistency_loss(
@@ -167,13 +174,14 @@ def motion_consistency_loss(
     rot_error = ((R2R1 - eye) ** 2).mean(dim=(1, 2))
     rot1_scale = ((R_A2B - eye) ** 2).mean(dim=(1, 2))
     rot2_scale = ((R_B2A - eye) ** 2).mean(dim=(1, 2))
-    rot_error = (rot_error / (rot1_scale + rot2_scale + 1e-24)).mean()
+    rot_error = rot_error / (rot1_scale + rot2_scale + 1e-24)
 
     trans_error = (trans_zero**2).sum(dim=1)  # [B,H,W]
     trans1_scale = (t_A2B**2).sum(dim=1)
     trans2_scale = (sampled_t_B2A**2).sum(dim=1)
     trans_error = trans_error / (trans1_scale + trans2_scale + 1e-24)
-    return rot_error, (mask[:, 0] * trans_error).mean()
+    rot_mean, trans_mean = mesh.global_means([rot_error, mask[:, 0] * trans_error])
+    return rot_mean, trans_mean
 
 
 def motion_smoothness_loss(motion_field: torch.Tensor) -> torch.Tensor:
@@ -182,7 +190,7 @@ def motion_smoothness_loss(motion_field: torch.Tensor) -> torch.Tensor:
     motion."""
     gx = gradient_x(motion_field, reversed=True)[:, :, 1:, :]
     gy = gradient_y(motion_field, reversed=True)[:, :, :, 1:]
-    return torch.sqrt(1e-24 + gx**2 + gy**2).mean()
+    return mesh.global_mean(torch.sqrt(1e-24 + gx**2 + gy**2))
 
 
 def motion_sparsity_loss(motion_map: torch.Tensor) -> torch.Tensor:
@@ -190,4 +198,4 @@ def motion_sparsity_loss(motion_map: torch.Tensor) -> torch.Tensor:
     per-sample, per-channel mean magnitude."""
     abs_motion = motion_map.abs()
     mean_abs = abs_motion.mean(dim=(2, 3), keepdim=True).detach()
-    return (2.0 * mean_abs * torch.sqrt(abs_motion / (mean_abs + 1e-24) + 1.0)).mean()
+    return mesh.global_mean(2.0 * mean_abs * torch.sqrt(abs_motion / (mean_abs + 1e-24) + 1.0))

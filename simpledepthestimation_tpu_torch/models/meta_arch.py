@@ -21,6 +21,10 @@ state. A validation-loss pass is ``model(batch, train=True)`` under
 Dtypes: the convolutions run in the compute dtype (models/build.py); norms,
 ``disp_to_depth``, all of ``geometry/``, both kernels and every loss run in
 float32.
+
+In a run of several processes every loss is the global batch's
+(``parallel.mesh``): the means over the batch, the photometric clip's
+statistics and BatchNorm's.
 """
 
 from __future__ import annotations
@@ -34,6 +38,7 @@ from . import losses as L
 from .build import META_ARCH_REGISTRY, build_depth_net, build_pose_net
 from ..geometry.camera import resize_img, scale_intrinsics, view_synthesis
 from ..ops.photometric import photometric_map
+from ..parallel import mesh
 
 
 def normalize_image(img: torch.Tensor, mean, std) -> torch.Tensor:
@@ -131,11 +136,12 @@ class MonoDepth2Model(nn.Module):
     def _clip(self, photo: torch.Tensor, n_groups: int = 1) -> torch.Tensor:
         """The optional mean+λσ clip of a map [G·B,1,h,w]: ``n_groups``
         independent maps stacked on the leading dim (the batched per-scale
-        evaluation), each clipped by its own statistics, with the unbiased
-        standard deviation."""
+        evaluation), each clipped by its own statistics over the global batch,
+        with the unbiased standard deviation."""
         if self.clip_loss > 0.0:
             grouped = photo.reshape(n_groups, -1)
-            cap = grouped.mean(dim=1) + self.clip_loss * grouped.std(dim=1)  # std: unbiased
+            mean, std = mesh.global_mean_std(grouped, dim=1)  # std: unbiased
+            cap = mean + self.clip_loss * std
             cap = cap.repeat_interleave(photo.shape[0] // n_groups).reshape(-1, 1, 1, 1)
             photo = torch.minimum(photo, cap)
         return photo
@@ -212,9 +218,9 @@ class MonoDepth2Model(nn.Module):
             maps = photo.reshape(-1, B, 1, h, w)
 
             if self.photometric_reduce == "min":
-                photo_per_scale.append(maps.amin(dim=0).mean())
+                photo_per_scale.append(mesh.global_mean(maps.amin(dim=0)))
             elif self.photometric_reduce == "mean":
-                photo_per_scale.append(maps.mean())
+                photo_per_scale.append(mesh.global_mean(maps))
             else:
                 raise NotImplementedError(self.photometric_reduce)
 

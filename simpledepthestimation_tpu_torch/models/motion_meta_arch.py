@@ -27,6 +27,13 @@ forward kernel and the image backward only.
 Each direction-batched loss is the mean over [2B], i.e. the average of the two
 directions; the JAX package (and the model it follows) sums the two, hence the
 2× when the losses are added up.
+
+In a run of several processes every mean over the batch is the global
+batch's (``parallel.mesh``), ``SCALE_NORMALIZE``'s depth mean among them, and
+the depth net's ``[2B]`` batch is two stacked per-rank batches
+(``mesh.stacked(2)``): RandLayerNorm draws the noise of the two stacked global
+batches and keeps the rank's rows, as the JAX package's one draw over its
+global ``[2B]`` array gives them.
 """
 
 from __future__ import annotations
@@ -43,6 +50,7 @@ from .meta_arch import normalize_image
 from .pose_nets import GoogleMotionNet
 from ..geometry.camera import resize_img, resize_img_avgpool, scale_intrinsics, view_synthesis
 from ..ops.pool import max_pool
+from ..parallel import mesh
 
 
 @META_ARCH_REGISTRY.register()
@@ -128,9 +136,9 @@ class MotionLearningModel(nn.Module):
 
         if self.depth_l1_loss_w > 0:
             l1 = (sampled_depth_B.detach() - depth_in_B).abs() * occlusion_mask
-            out["depth_l1_loss"] = (l1.sum(dim=(1, 2, 3)) / normalizer).mean() * self.depth_l1_loss_w
+            out["depth_l1_loss"] = mesh.global_mean(l1.sum(dim=(1, 2, 3)) / normalizer) * self.depth_l1_loss_w
 
-        out["rgb_l1_loss"] = ((sampled_frame_B - frame_A).abs() * occlusion_mask).mean()
+        out["rgb_l1_loss"] = mesh.global_mean((sampled_frame_B - frame_A).abs() * occlusion_mask)
 
         if self.ssim_loss_w > 0.0:
             depth_error = (depth_in_B - sampled_depth_B) ** 2
@@ -139,7 +147,7 @@ class MotionLearningModel(nn.Module):
             proximity_weight = (second_moment / (depth_error + second_moment) * proj_mask).detach()
             ssim_map, avg_weight = L.weighted_ssim(sampled_frame_B, frame_A, proximity_weight, self.C1, self.C2)
             out["depth_proximity_weight"] = proximity_weight
-            out["ssim_loss"] = (ssim_map * avg_weight).mean() * self.ssim_loss_w * 0.5
+            out["ssim_loss"] = mesh.global_mean(ssim_map * avg_weight) * self.ssim_loss_w * 0.5
         return out
 
     def forward(self, batch: Dict[str, torch.Tensor], train: bool = False,
@@ -162,7 +170,8 @@ class MotionLearningModel(nn.Module):
         flip2 = torch.cat([flip, flip], dim=0) if flip is not None else None
         both = torch.cat([normalize_image(frame1, self.pixel_mean, self.pixel_std),
                           normalize_image(frame2, self.pixel_mean, self.pixel_std)], dim=0)
-        depth_pred = run_depth(both, flip2)  # [[2B,1,H,W]]
+        with mesh.stacked(2):
+            depth_pred = run_depth(both, flip2)  # [[2B,1,H,W]]
         depth1, depth2 = depth_pred[0][:B], depth_pred[0][B:]
 
         pin1, pin2 = frame1, frame2
@@ -215,7 +224,7 @@ class MotionLearningModel(nn.Module):
                 t_2to1 = pose_2to1[:, :3, 3, None, None].expand(B, 3, H, W)
 
             if self.scale_normalize:
-                depth_mean = torch.cat([rd1, rd2], dim=0).mean()
+                depth_mean = mesh.global_mean(torch.cat([rd1, rd2], dim=0))
                 d1n, d2n = rd1 / depth_mean, rd2 / depth_mean
                 t_1to2, t_2to1 = t_1to2 / depth_mean, t_2to1 / depth_mean
                 if motion is not None:

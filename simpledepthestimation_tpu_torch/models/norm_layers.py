@@ -26,6 +26,14 @@ compute-dtype policy of the port:
   leaves its running statistics alone: the recomputation of an
   activation-checkpointed forward (``TPU.REMAT``) runs every BatchNorm a
   second time, and JAX's functional ``jax.checkpoint`` updates them once.
+
+In a run of several processes (``parallel.mesh.is_global()``) a train-mode
+``BatchNorm2d`` normalises with the global batch's statistics, as every
+BatchNorm of the JAX package's global program does, and folds the biased
+global variance into its running statistics, so these stay equal on every
+rank (:class:`_GlobalBatchNorm`: one collective forward, one backward, and
+again in a ``TPU.REMAT`` recomputation, in the same order on every rank).
+Eval mode issues no collective: the evaluation's shards are unequal.
 """
 
 from __future__ import annotations
@@ -36,6 +44,8 @@ import threading
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+
+from ..parallel import mesh
 
 
 class _CastingConv:
@@ -82,6 +92,46 @@ def statistics_frozen():
         _frozen.depth = depth
 
 
+class _GlobalBatchNorm(torch.autograd.Function):
+    """Train-mode batch norm of ``x`` [B,C,H,W] float32 over the global batch.
+
+    Forward: each rank's count, mean and centred second moment per channel,
+    gathered in one all-reduce (``mesh.gather_rows``) and combined in float64
+    in rank order (Chan's parallel rule: no E[x²] − E[x]², which cancels on
+    post-ReLU activations). Backward: the global Σdy and Σdy·x̂ in one
+    all-reduce; the affine gradients are the rank's own sums, which the step
+    sums over ranks. Returns the output, the global mean and the biased global
+    variance."""
+
+    @staticmethod
+    def forward(ctx, x, weight, bias, eps):
+        n = x.numel() // x.shape[1]
+        var, mean = torch.var_mean(x, dim=(0, 2, 3), correction=0)
+        parts = mesh.gather_rows(torch.stack([torch.full_like(mean, n), mean, var * n]))  # [world, 3, C]
+        parts = parts.double()
+        counts, means, m2s = parts[:, 0], parts[:, 1], parts[:, 2]
+        total = counts.sum(0)
+        g_mean = (counts * means).sum(0) / total
+        g_var = (m2s.sum(0) + (counts * (means - g_mean) ** 2).sum(0)) / total
+        g_mean, g_var, total = g_mean.float(), g_var.float(), total.float()
+        invstd = torch.rsqrt(g_var + eps)
+        out = (x - g_mean[None, :, None, None]) * (invstd * weight)[None, :, None, None] + bias[None, :, None, None]
+        ctx.save_for_backward(x, weight, g_mean, invstd, total)
+        ctx.mark_non_differentiable(g_mean, g_var)
+        return out, g_mean, g_var
+
+    @staticmethod
+    def backward(ctx, dy, _dmean, _dvar):
+        x, weight, mean, invstd, total = ctx.saved_tensors
+        xhat = (x - mean[None, :, None, None]) * invstd[None, :, None, None]
+        sum_dy = dy.sum(dim=(0, 2, 3))
+        sum_dy_xhat = (dy * xhat).sum(dim=(0, 2, 3))
+        g_dy, g_dy_xhat = mesh.all_reduce_sum(torch.stack([sum_dy, sum_dy_xhat]), "backward").unbind()
+        dx = (dy - (g_dy / total)[None, :, None, None] - xhat * (g_dy_xhat / total)[None, :, None, None]) \
+            * (weight * invstd)[None, :, None, None]
+        return dx, sum_dy_xhat, sum_dy, None
+
+
 class BatchNorm2d(nn.BatchNorm2d):
     """float32 batch norm with an explicit ``train`` argument."""
 
@@ -91,17 +141,21 @@ class BatchNorm2d(nn.BatchNorm2d):
                 x.float(), self.running_mean, self.running_var, self.weight, self.bias,
                 training=False, momentum=self.momentum, eps=self.eps,
             )
-        # the statistics are updated by hand from the batch mean and the biased
-        # batch variance (1/invstd² − eps) that the normalisation saves anyway
-        out, mean, invstd = torch.native_batch_norm(
-            x.float(), self.weight, self.bias, None, None, True, self.momentum, self.eps
-        )
+        if mesh.is_global():
+            out, mean, var = _GlobalBatchNorm.apply(x.float(), self.weight, self.bias, self.eps)
+        else:
+            # the statistics are updated by hand from the batch mean and the biased
+            # batch variance (1/invstd² − eps) that the normalisation saves anyway
+            out, mean, invstd = torch.native_batch_norm(
+                x.float(), self.weight, self.bias, None, None, True, self.momentum, self.eps
+            )
+            var = None
         if getattr(_frozen, "depth", 0):
             return out
         with torch.no_grad():
             self.num_batches_tracked += 1
             self.running_mean.lerp_(mean, self.momentum)
-            self.running_var.lerp_(invstd.pow(-2).sub_(self.eps), self.momentum)
+            self.running_var.lerp_(invstd.pow(-2).sub_(self.eps) if var is None else var, self.momentum)
         return out
 
 

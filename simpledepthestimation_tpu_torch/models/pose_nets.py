@@ -24,6 +24,7 @@ import torch.nn.functional as F
 from .build import POSE_NET_REGISTRY, compute_dtype
 from .layers import ConvGNReLU
 from .norm_layers import Conv2d
+from ..parallel import mesh
 from ..geometry.camera import resize_img
 from ..geometry.pose import pose_vec2mat
 
@@ -213,5 +214,5 @@ class GoogleMotionNet(nn.Module):
         motion = motion * trans_scale
         if self.mask_motion:
             mag = torch.sqrt((motion**2).sum(dim=1, keepdim=True))
-            motion = motion * (mag > mag.mean()).to(motion.dtype)
+            motion = motion * (mag > mesh.global_mean(mag.detach())).to(motion.dtype)  # the global batch's mean
         return pose_vec2mat(vec), motion * motion_weight

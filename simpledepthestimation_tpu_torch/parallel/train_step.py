@@ -1,10 +1,22 @@
-"""Train and eval steps for one GPU.
+"""Train and eval steps, on one card or in several processes.
 
-Counterpart of ``simpledepthestimation_tpu/parallel/train_step.py`` as far as
-one device goes: no mesh, no sharding, no buffer donation (PyTorch updates the
-parameters in place as it stands). The warp-window policy of the JAX step
-schedules its TPU warp kernels and has no counterpart here: the CUDA warp
-gathers directly and has no window.
+Counterpart of ``simpledepthestimation_tpu/parallel/train_step.py``: no
+sharding and no buffer donation (PyTorch updates the parameters in place as it
+stands). The warp-window policy of the JAX step schedules its TPU warp kernels
+and has no counterpart here: the CUDA warp gathers directly and has no window.
+
+In several processes (``torch.distributed`` initialised; ``mesh``) each rank
+steps on its own rows of the global batch with a full copy of the state, and
+the step computes what world 1 computes on the global batch, as the JAX
+package's one program over the global batch does: every loss and BatchNorm
+statistic is the global batch's, the backward is seeded with ``1/world``, and
+the gradients are summed over ranks (coalesced into flat buckets) before
+``grad_norm`` and the clip, so that every rank applies the same update. The
+reduction is written by hand rather than taken from ``DistributedDataParallel``,
+which averages (the rule here sums), broadcasts buffers, needs
+``find_unused_parameters`` for the parameters ``BtsModel`` freezes (they get
+gradients and count in ``grad_norm``) and hooks into the per-block checkpoints
+of ``remat``.
 
     state = create_train_state(cfg, steps_per_epoch=n)     # on the card
     step = make_train_step(state, grad_clip=cfg.SOLVER.GRAD_CLIP,
@@ -44,6 +56,7 @@ from ..models.build import build_model, resolve_device
 from ..models.norm_layers import BatchNorm2d, statistics_frozen
 from ..models.pretrained import maybe_load_pretrained_encoder
 from ..solver.build import ScheduledLR, build_optimizer
+from . import mesh
 
 
 @dataclass
@@ -103,16 +116,18 @@ def create_train_state(
 
 def _recompute_contexts(generator: Optional[torch.Generator]):
     """``context_fn`` of ``torch.utils.checkpoint``: the forward context notes
-    the noise generator's state as the block's forward found it; the recompute
-    context replays from there with the BatchNorm running statistics frozen,
-    and gives the generator back the state it had when the recomputation began
-    (also where the recomputation stops early)."""
+    the noise generator's state as the block's forward found it, and how many
+    batches its input stacks (``mesh.stacked``); the recompute context replays
+    from there with the BatchNorm running statistics frozen, and gives the
+    generator back the state it had when the recomputation began (also where
+    the recomputation stops early)."""
     before = {}
 
     @contextlib.contextmanager
     def forward():
         if generator is not None:
             before["state"] = generator.get_state()
+        before["blocks"] = mesh.current_blocks()
         yield
 
     @contextlib.contextmanager
@@ -121,7 +136,7 @@ def _recompute_contexts(generator: Optional[torch.Generator]):
         if generator is not None:
             generator.set_state(before["state"])
         try:
-            with statistics_frozen():
+            with statistics_frozen(), mesh.stacked(before["blocks"]):
                 yield
         finally:
             if generator is not None:
@@ -173,7 +188,9 @@ def make_train_step(
     ``metrics`` holds ``total_loss``, ``grad_norm`` and every entry of the
     model's loss dict as detached 0-d tensors on that device; nothing in the
     step waits for the device. ``remat``: keep the blocks' inputs only and
-    recompute their forward in the backward (``TPU.REMAT``, :func:`_rematerialised`)."""
+    recompute their forward in the backward (``TPU.REMAT``, :func:`_rematerialised`).
+    In several processes ``batch`` is the rank's rows of the global batch, the
+    metrics are the global batch's, equal on every rank, and so is the update."""
     params = [p for p in state.model.parameters() if p.requires_grad]
     device = params[0].device
 
@@ -186,9 +203,10 @@ def make_train_step(
         with _rematerialised(state.model, state.noise_generator) if remat else contextlib.nullcontext():
             outputs = state.model(batch, train=True, generator=state.noise_generator)
         total = torch.stack([v for k, v in outputs.items() if "loss" in k]).sum()
-        total.backward()
+        mesh.backward(total)
 
         grads = [p.grad for p in params if p.grad is not None]
+        mesh.sum_gradients(grads)
         grad_norm = torch.nn.utils.get_total_norm(grads, norm_type=2.0)
         if grad_clip > 0.0:
             scale = torch.clamp(grad_clip / (grad_norm + 1e-12), max=1.0)
@@ -233,7 +251,11 @@ def compute_precise_bn_stats(state: TrainState, batches: Iterable[Dict[str, torc
     left as they were. The forwards draw their noise (RandLayerNorm) from a
     generator of their own seeded 0, so ``state.noise_generator`` is not moved.
     On MonoDepth2 each forward computes the loss, and so launches the warp and
-    photometric kernels as a validation-loss pass does."""
+    photometric kernels as a validation-loss pass does. The forwards run
+    under ``mesh.per_rank()``: in several processes each rank's statistics
+    are its own batches' and no collective is issued, as the JAX package's
+    process-local forwards compute them; ``engine.hooks.PreciseBN`` then
+    takes their mean over ranks."""
     model = state.model
     norms = [m for m in model.modules() if isinstance(m, BatchNorm2d)]
     if not norms:
@@ -244,7 +266,7 @@ def compute_precise_bn_stats(state: TrainState, batches: Iterable[Dict[str, torc
     counts = [m.num_batches_tracked.clone() for m in norms]
     n = 0
     try:
-        with torch.no_grad():
+        with torch.no_grad(), mesh.per_rank():
             for batch in batches:
                 for m in norms:
                     m.momentum = 1.0 / (n + 1)

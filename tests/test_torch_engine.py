@@ -30,8 +30,10 @@ the CPU at a small size.
     weights file with a missing and an extra key loads non-strictly and logs
     both.
 (e) Without ``device`` the entry points need a CUDA device (no CPU fallback).
-(f) What the runtime does not do yet (several processes) raises; ``TEST.ASYNC``
-    and ``VIS_PERIOD`` no longer do.
+(f) Above one process ``TEST.ASYNC`` runs synchronously and ``VIS_PERIOD`` is
+    off, as in the JAX package; a global batch that does not split evenly among
+    the processes, and ``--num-processes`` without ``--coordinator``, raise
+    (the runs in several processes: ``tests/test_torch_parallel.py``).
 """
 
 import json
@@ -310,23 +312,29 @@ def test_entry_points_need_cuda_unless_cpu_is_named(tmp_path):
 
 @pytest.mark.parametrize("override", [("TEST.ASYNC", True), ("VIS_PERIOD", 5)], ids=["async_eval", "vis_period"])
 def test_unported_runtime_options_raise(tmp_path, override, monkeypatch):
-    """``TEST.ASYNC`` and ``VIS_PERIOD`` are ported (``tests/test_torch_trainer.py``):
-    the runtime accepts them. What stays unported, several processes, still
-    raises with either of them set."""
-    from simpledepthestimation_tpu_torch.engine.runtime import check_supported
+    """``TEST.ASYNC`` and ``VIS_PERIOD`` run in one process
+    (``tests/test_torch_trainer.py``); above one they are off, as in the JAX
+    package (``engine/runtime.py:298,311-316``), and what the runtime cannot
+    do there, a global batch that does not split among the processes, raises."""
+    from simpledepthestimation_tpu_torch.engine.runtime import check_supported, multiprocess_options
     from simpledepthestimation_tpu_torch.utils import comm
 
     cfg = _cfg(get_cfg, MONO_YAML, _opts(tmp_path, extra=list(override)))
     check_supported(cfg)
+    key, value = override
+    assert multiprocess_options(cfg) == (value is True, 0 if value is True else value)
     monkeypatch.setattr(comm, "get_world_size", lambda: 2)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md A17"):
+    check_supported(cfg)  # the batch of 4 splits in two
+    assert multiprocess_options(cfg) == (False, 0)
+    monkeypatch.setattr(comm, "get_world_size", lambda: 3)
+    with pytest.raises(ValueError, match="must divide evenly among 3 processes"):
         do_train(cfg, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md A17"):
-        do_test(cfg, device="cpu")
 
 
 def test_several_processes_raise(tmp_path):
+    """``--num-processes`` above 1 needs the coordinator's address."""
     args = default_argument_parser().parse_args(
         ["--device", "cpu", "--num-processes", "2", "--cfg", MONO_YAML, "OUTPUT_DIR", str(tmp_path)])
-    with pytest.raises(NotImplementedError, match="ROADMAP.md A17"):
+    with pytest.raises(ValueError, match="needs --coordinator"):
         simple_main(args, lambda cfg, **kw: None)
+    assert not os.path.exists(tmp_path / "MonoDepth2_synthetic_quick")

@@ -79,7 +79,9 @@ def test_every_module_imports_without_jax(loaded_modules):
             "simpledepthestimation_tpu_torch.models.encoders",
             "simpledepthestimation_tpu_torch.data.jpeg",
             "simpledepthestimation_tpu_torch.data.datasets.waymo",
-            "simpledepthestimation_tpu_torch.data.datasets.waymo_extract"} <= set(names)
+            "simpledepthestimation_tpu_torch.data.datasets.waymo_extract",
+            "simpledepthestimation_tpu_torch.parallel.mesh",
+            "simpledepthestimation_tpu_torch.utils.comm"} <= set(names)
     assert {os.path.relpath(p, REPO) for p in ENTRY_POINTS} == {
         f"projects/{family}/train_torch.py" for family in ("MonoDepth2", "MotionLearning", "Supervised")}
     assert {os.path.relpath(p, REPO) for p in TOOLS} == {

@@ -317,9 +317,13 @@ def test_auto_scale_workers_equals_the_jax_function(runs, world):
 
 
 def test_default_trainer_refuses_several_processes(runs, monkeypatch):
+    """Above one process ``DefaultTrainer`` refuses a global batch (after
+    ``auto_scale_workers``) that does not split evenly among the processes,
+    before it builds anything (the runs in several processes:
+    ``tests/test_torch_parallel.py``)."""
     from simpledepthestimation_tpu_torch.utils import comm
 
-    monkeypatch.setattr(comm, "get_world_size", lambda: 2)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md A17"):
+    assert int(runs["cfg_t"].SOLVER.IMS_PER_BATCH) % 3 and not int(runs["cfg_t"].SOLVER.REFERENCE_WORLD_SIZE)
+    monkeypatch.setattr(comm, "get_world_size", lambda: 3)
+    with pytest.raises(ValueError, match="must divide evenly among 3 processes"):
         DefaultTrainer(runs["cfg_t"], device="cpu")
-

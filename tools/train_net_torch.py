@@ -5,7 +5,9 @@ The twin of ``train_net.py`` (which drives the JAX package): the config's
 model, optimizer and loaders with the default hooks (timer, rate log,
 PreciseBN with ``TEST.PRECISE_BN.ENABLED``, checkpoints, evaluation, a
 ``torch.profiler`` trace of each iteration in ``TPU.PROFILE_ITERS``, writers).
-It runs on the CUDA card; ``--device cpu`` runs it on the CPU.
+It runs on the CUDA card; ``--device cpu`` runs it on the CPU. Several
+processes: ``--coordinator host:port --num-processes N --process-id i`` in
+each, as for the project entry points.
 
 Usage:
   python tools/train_net_torch.py --cfg projects/Supervised/configs/resnet18.yaml
@@ -18,17 +20,15 @@ import sys
 sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), ".."))
 
 from simpledepthestimation_tpu_torch.engine import (  # noqa: E402
-    DefaultTrainer, assemble_cfg, default_argument_parser, default_setup, restore_inference_state,
+    DefaultTrainer, assemble_cfg, default_argument_parser, default_setup, maybe_init_distributed,
+    restore_inference_state,
 )
-from simpledepthestimation_tpu_torch.models.build import resolve_device  # noqa: E402
 
 
 def main(argv=None):
     """Train (or with ``--eval`` evaluate); returns the trainer or the results."""
     args = default_argument_parser().parse_args(argv)
-    if args.num_processes > 1 or args.coordinator:
-        raise NotImplementedError("training in several processes is not ported yet: ROADMAP.md A17")
-    device = resolve_device(args.device)
+    device = maybe_init_distributed(args)
     cfg = assemble_cfg(args)
     default_setup(cfg, args)
 
