@@ -55,7 +55,11 @@ above, with ``bts_r50.yaml``'s model), packnet_train_path (``packnet_1a.yaml``
 as shipped), motion_rigid_train_path (MotionLearning's ``resnet18.yaml`` with
 GoogleResNetv2 and GooglePoseNet; a ResNet-18 weight file in reach, which the
 warm start of a net without a torchvision encoder must leave unread),
-cpu_agreement (float32, then ``cpu_agreement_bf16``: the loss pass and depth in
+report_tools_path (``tools/{bench_models,profile_step,trace_step,bench_loader}_torch.py``
+through their functions: every family's train-step images/s under the bench's
+protocol, the five MonoDepth2 step variants, the flagship's profiler table beside
+the device busy time of the same step, the loader on OpenCV-written frames;
+launches a step checked for each), cpu_agreement (float32, then ``cpu_agreement_bf16``: the loss pass and depth in
 bfloat16 against the CPU copy), cpu_agreement_train_step, cpu_agreement_motion_train_step,
 cpu_agreement_bts, cpu_agreement_packnet (1A and 1B, bf16; its train step, and its
 gradient with cuDNN off), cpu_agreement_motion_rigid_train_step, multiprocess_path
@@ -2316,6 +2320,131 @@ def phase_motion_rigid_train_path(device):
     return launches
 
 
+# --- the report tools (tools/{bench_models,profile_step,trace_step,bench_loader}_torch.py) ---
+
+NO_LAUNCH = dict.fromkeys(KERNEL_NAMES, 0)
+MOTION_PER_STEP = {**NO_LAUNCH, "warp_bilinear_fwd": 2, "warp_bilinear_bwd_coords": 1, "warp_bilinear_bwd_image": 1}
+BENCH_PER_STEP = {"Supervised-R18": NO_LAUNCH, "BTS-R50": NO_LAUNCH, "MonoDepth2-R18": MONO_PER_STEP,
+                  "PackNet-1A": MONO_PER_STEP, "MotionLearning-R18": MOTION_PER_STEP}
+# with LOSS.SSIM_WEIGHT 0 the map is the plain L1 mean (models/meta_arch.py): no K2, no K4;
+# without the automask only the warped half is mapped: one K2 a scale
+ABLATION_PER_STEP = {
+    "full (ssim+automask+min)": MONO_PER_STEP,
+    "no-ssim": {**MONO_PER_STEP, "photometric_map_fwd": 0, "photometric_map_bwd": 0},
+    "no-automask": {**MONO_PER_STEP, "photometric_map_fwd": 4},
+    "no-smooth": MONO_PER_STEP,
+    "supervised-only (nets minus pose/warp)": NO_LAUNCH,
+}
+LOADER_WORKERS = 8
+TRACE_TOP = 12
+
+
+def _per_step(counts: dict, steps: int, expected: dict, label: str) -> dict:
+    per_step = {k: v / steps for k, v in counts.items()}
+    if per_step != expected:
+        raise AssertionError(f"{label} launched {per_step} a step over {steps} steps, expected {expected}")
+    return per_step
+
+
+def phase_report_tools_path(device):
+    """The four report tools in this process, through their functions: every
+    family of ``bench_models_torch.CASES`` at its shape under the tool's
+    protocol (5 warm steps, 6 chunks of 5), the five ``profile_step_torch``
+    variants, ``trace_step_torch`` on the flagship at B=16 (its table beside the
+    device busy time of the same step under ``_profile``), and
+    ``bench_loader_torch`` cut to 8 workers and one measured epoch (no warm one) on
+    the full 64-frame OpenCV-written tree, with the PNG read time of one frame as OpenCV
+    wrote it and as the port writes it. Launches a step exact for each family
+    and variant, and in the trace's table. The tools' own lines go to standard
+    error. Returns the launches of the bench and the variants."""
+    import contextlib
+    import math
+    import shutil
+    import tempfile
+
+    import torch
+
+    bench, profile, trace, loader = (_tool(n) for n in ("bench_models", "profile_step", "trace_step", "bench_loader"))
+    t_phase = time.perf_counter()
+    total = dict.fromkeys(KERNEL_NAMES, 0)
+    rec = {"phase": "report_tools_path", "families": [], "ablations": []}
+    tmp = tempfile.mkdtemp()
+    try:
+        with contextlib.redirect_stdout(sys.stderr):
+            for name, meta, dn, pose, B, H, W, opts in bench.CASES:
+                reset_launch_counts()
+                t0 = time.perf_counter()
+                res = bench.bench_case(name, meta, dn, pose, B, H, W, opts, device=device)
+                counts = read_launch_counts()
+                if not math.isfinite(res["last_loss"]):
+                    raise AssertionError(f"bench_models_torch {name}: loss {res['last_loss']}")
+                per_step = _per_step(counts, res["steps"], BENCH_PER_STEP[name], f"bench_models_torch {name}")
+                rec["families"].append({"name": name, "batch": B, "hw": [H, W], "opts": list(opts),
+                                        "images_per_s": res["images_per_s"], "last_loss": res["last_loss"],
+                                        "launches_per_step": per_step, "seconds": time.perf_counter() - t0})
+                total = {k: total[k] + counts[k] for k in total}
+                torch.cuda.empty_cache()
+
+            batch = bench.flagship_batch(profile.B, profile.H, profile.W, device=device)
+            for name, cfg in profile.variants("bfloat16").items():
+                b = profile.supervised_batch(batch, profile.B, profile.H, profile.W) if name.startswith("supervised") \
+                    else batch
+                reset_launch_counts()
+                dt = profile.time_step(cfg, b, device)
+                counts = read_launch_counts()
+                per_step = _per_step(counts, profile.WARM_STEPS + profile.STEPS, ABLATION_PER_STEP[name],
+                                     f"profile_step_torch {name}")
+                rec["ablations"].append({"name": name, "ms_per_step": dt * 1e3, "images_per_s": profile.B / dt,
+                                         "launches_per_step": per_step})
+                total = {k: total[k] + counts[k] for k in total}
+
+            t0 = time.perf_counter()
+            traced = trace.main(["--outdir", os.path.join(tmp, "trace"), "--top", str(TRACE_TOP)])
+            trace_s = time.perf_counter() - t0
+            _, step = bench.build_step(bench.flagship_cfg("bfloat16"), device)
+        table = traced["table"]
+        named = {k: sum(r[1] for r in table if f"{k}_kernel" in r[2][:60]) for k in KERNEL_NAMES}
+        if named != MONO_PER_STEP:
+            raise AssertionError(f"trace_step_torch's table names the kernels {named} times a step, "
+                                 f"expected {MONO_PER_STEP}")
+        busy = _profile(lambda: step(batch), "report_tools_flagship_step", top=5)
+        rec["trace"] = {
+            "batch": 16, "hw": [192, 640], "steps": trace.N_TRACE_STEPS, "seconds": trace_s,
+            "trace_bytes": os.path.getsize(traced["trace"]),
+            "total_ms_per_step": sum(r[0] for r in table),
+            "launches_per_step": sum(r[1] for r in table),
+            "profile_device_busy_ms": busy["device_busy_ms"],
+            "top": [{"ms": ms, "launches": n, "name": k[:60], "source": src} for ms, n, k, src in table[:TRACE_TOP]],
+            "hand_written": [{"ms": ms, "launches": n, "name": k[:60], "source": src} for ms, n, k, src in table
+                             if any(f"{kn}_kernel" in k[:60] for kn in KERNEL_NAMES)],
+            "rows_without_source": sum(1 for r in table if not r[3]),
+        }
+        if not rec["trace"]["hand_written"] or any(not r["source"] for r in rec["trace"]["hand_written"]):
+            raise AssertionError(f"trace_step_torch found no port source line for a kernel: "
+                                 f"{rec['trace']['hand_written']}")
+
+        with contextlib.redirect_stdout(sys.stderr):
+            t0 = time.perf_counter()
+            root = os.path.join(tmp, "kitti")
+            split = loader.make_tree(root, n=64)
+            tree_s = time.perf_counter() - t0
+            read = loader.frame_read_ms(split, root)
+            t0 = time.perf_counter()
+            # no warm epoch: the frames were just written, so the page cache holds them
+            rate = loader.images_per_s(root, split, LOADER_WORKERS, epochs=1, warm_epochs=0)
+        rec["loader"] = {"frames": 64, "hw": [375, 1242], "workers": LOADER_WORKERS, "measured_epochs": 1,
+                         "warm_epochs": 0,
+                         "images_per_s": rate, "seconds": time.perf_counter() - t0, "tree_seconds": tree_s,
+                         "png_read_ms_opencv_written": read["opencv_written_ms"],
+                         "png_read_ms_port_written": read["port_written_ms"]}
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    rec["launches"] = total
+    rec["seconds"] = time.perf_counter() - t_phase
+    emit(rec)
+    return total
+
+
 def phase_cpu_agreement_motion_rigid(device):
     """The rigid MotionLearning train step on the card and on a CPU copy, float32,
     B=2 64x96, noise 0 (the two devices' generators differ)."""
@@ -2539,6 +2668,7 @@ def _profile(fn, label: str, top: int, wall_iters: int = 10, ops=()):
                                          for sh, c, ms in sorted(rows, key=lambda r: -r[2])[:3]]}
                       for name, rows in sorted(groups.items())}
     emit(rec)
+    return rec
 
 
 def profile_paths(device, top: int = 14):
@@ -3033,6 +3163,7 @@ def main() -> int:
         phase(device)
     by_path["packnet_train_path"] = phase_packnet_train_path(device)
     by_path["motion_rigid_train_path"] = phase_motion_rigid_train_path(device)
+    by_path["report_tools_path"] = phase_report_tools_path(device)
     phase_cpu_agreement(device)
     phase_cpu_agreement_motion(device)
     phase_cpu_agreement_bts(device)
@@ -3050,20 +3181,21 @@ def main() -> int:
         ("warp", "warp_bilinear_fwd", csrc + "warp.cu", pallas + "pallas_warp.py:755",
          ("main_path", "train_path", "motion_train_path", "cli_train_path", "motion_cli_train_path",
           "default_trainer_path", "async_vis_path", "waymo_cli_train_path", "waymo_motion_cli_train_path",
-          "packnet_train_path", "motion_rigid_train_path", "multiprocess_path", "nccl_world1_path")),
+          "packnet_train_path", "motion_rigid_train_path", "multiprocess_path", "nccl_world1_path",
+          "report_tools_path")),
         ("photo", "photometric_map_fwd", csrc + "photometric.cu", pallas + "pallas_photometric.py:243",
          ("main_path", "train_path", "cli_train_path", "default_trainer_path", "async_vis_path",
-          "waymo_cli_train_path", "packnet_train_path", "multiprocess_path", "nccl_world1_path")),
+          "waymo_cli_train_path", "packnet_train_path", "multiprocess_path", "nccl_world1_path", "report_tools_path")),
         ("warp_bwd", "warp_bilinear_bwd_coords", csrc + "warp.cu", pallas + "pallas_warp.py:802",
          ("train_path", "motion_train_path", "cli_train_path", "motion_cli_train_path", "default_trainer_path",
           "async_vis_path", "waymo_cli_train_path", "waymo_motion_cli_train_path", "packnet_train_path",
-          "motion_rigid_train_path", "multiprocess_path", "nccl_world1_path")),
+          "motion_rigid_train_path", "multiprocess_path", "nccl_world1_path", "report_tools_path")),
         ("photo_bwd", "photometric_map_bwd", csrc + "photometric.cu", pallas + "pallas_photometric.py:171",
          ("train_path", "cli_train_path", "default_trainer_path", "async_vis_path", "waymo_cli_train_path",
-          "packnet_train_path", "multiprocess_path", "nccl_world1_path")),
+          "packnet_train_path", "multiprocess_path", "nccl_world1_path", "report_tools_path")),
         ("warp_bwd_image", "warp_bilinear_bwd_image", csrc + "warp.cu", pallas + "pallas_warp.py:1119",
          ("motion_train_path", "motion_cli_train_path", "waymo_motion_cli_train_path", "motion_rigid_train_path",
-          "multiprocess_path")),
+          "multiprocess_path", "report_tools_path")),
     ):
         counts = {path: by_path[path][name] for path in paths}
         if min(counts.values()) < 1:

@@ -7,7 +7,9 @@ the CPU at a small size.
     two steps at B=4), evaluation on 2 test samples with ``GT_SCALE``, both
     sides from the same weights (the port's seeded init with perturbed norm
     scales, biases and running statistics): the JAX side loads them through
-    ``MODEL.WEIGHTS``, the port gets the model through ``model=``. Limits are
+    ``MODEL.WEIGHTS`` (its ``create_train_state`` is handed the same tree, in
+    place of an eager Flax ``init`` whose values the load replaces), the port
+    gets the model through ``model=``. Limits are
     those of ``tests/test_torch_train_step.py``'s trajectory: per-step losses
     rtol 2e-3, ``grad_norm`` rtol 1e-3 at the first step and 5e-3 after it,
     the trained parameters relative L2 ≤ 2e-3 and cosine ≥ 1−1e-6, the
@@ -48,6 +50,7 @@ import torch
 
 from simpledepthestimation_tpu.config import get_cfg as get_cfg_jax
 from simpledepthestimation_tpu.engine.checkpoint import Checkpointer as JaxCheckpointer
+from simpledepthestimation_tpu.engine import runtime as jax_runtime
 from simpledepthestimation_tpu.engine.runtime import do_train as jax_do_train
 from simpledepthestimation_tpu.models.torch_import import convert_meta_arch
 from simpledepthestimation_tpu.parallel.train_step import TrainState as JTrainState
@@ -99,7 +102,7 @@ def _flat_params(model):
     return np.concatenate([p.detach().numpy().astype(np.float64).ravel() for p in model.parameters()])
 
 
-def test_do_train_and_eval_match_jax_do_train(tmp_path):
+def test_do_train_and_eval_match_jax_do_train(tmp_path, monkeypatch):
     opts = _opts(tmp_path / "out", extra=["TPU.MESH_SHAPE", "(1,)"])
     cfg_j = _cfg(get_cfg_jax, MONO_YAML, opts + ["OUTPUT_DIR", str(tmp_path / "jax")])
     cfg_t = _cfg(get_cfg, MONO_YAML, opts + ["OUTPUT_DIR", str(tmp_path / "port")])
@@ -115,6 +118,14 @@ def test_do_train_and_eval_match_jax_do_train(tmp_path):
                          batch_stats=variables["batch_stats"], opt_state=tx.init(variables["params"]))
     JaxCheckpointer(str(tmp_path / "weights")).save(0, jstate)
     cfg_j.MODEL.WEIGHTS = str(tmp_path / "weights")
+    # the JAX do_train's state starts from the shared tree: its eager Flax init, compiled op by op
+    # (most of this test's time on a CPU), would make values that loading MODEL.WEIGHTS replaces
+
+    def shared_state(model, optimizer, sample_batch, rng, train=True):
+        return JTrainState(step=np.zeros((), np.int32), params=variables["params"],
+                           batch_stats=variables["batch_stats"], opt_state=optimizer.init(variables["params"]))
+
+    monkeypatch.setattr(jax_runtime, "create_train_state", shared_state)
 
     j_batches, j_metrics = [], []
     j_state = jax_do_train(cfg_j, batch_tap=j_batches.append, metrics_tap=lambda it, m: j_metrics.append((it, m)))

@@ -2,8 +2,9 @@
 JAX model on the CPU, on shared weights and one shared batch (B=2, 64x256,
 N=2, float32).
 
-Weights: initialised by the JAX model, perturbed with numpy, carried across by
-``load_flax_variables``. Every entry of the loss dict (``train=True``) and
+Weights: the port's seeded init carried to a Flax tree by the JAX package's
+``convert_meta_arch`` (no JAX ``init`` compile), perturbed with numpy, carried
+back by ``load_flax_variables``. Every entry of the loss dict (``train=True``) and
 ``depth_pred`` (``train=False``) agree to 1e-4 relative: two ResNet-18 sized
 stacks of float32 convolutions summed in another order, then a projection that
 cancels K against its inverse.
@@ -21,16 +22,16 @@ from simpledepthestimation_tpu_torch.models.flax_import import load_flax_variabl
 from simpledepthestimation_tpu_torch.ops.photometric import photometric_map
 from simpledepthestimation_tpu_torch.ops.warp import warp_bilinear
 
-from torch_port_helpers import batch_to_torch, init_jax_monodepth2, make_batch, monodepth2_cfgs, nhwc
+from torch_port_helpers import batch_to_torch, make_batch, monodepth2_cfgs, nhwc, shared_variables
 
 RTOL = 1e-4
 
 
 @pytest.fixture(scope="module")
 def shared():
-    cfg_j, _ = monodepth2_cfgs()
+    cfg_j, cfg_t = monodepth2_cfgs()
     batch = make_batch(seed=0, B=2, H=64, W=256, N=2, with_depth=True, flip=(False, True))
-    _, variables = init_jax_monodepth2(cfg_j, batch)
+    variables = shared_variables(build_model(cfg_t, device="cpu", generator=torch.Generator().manual_seed(0)), cfg_j)
     return batch, variables
 
 

@@ -31,6 +31,7 @@ Measured on an 8-core CPU (2 torch threads), limits beside:
   cycle loss's ill-conditioning, which that test's docstring measures).
 """
 
+import functools
 import logging
 import os
 
@@ -87,11 +88,17 @@ def _image(seed, h=H, w=W):
     return ((smooth_field(np.random.RandomState(seed), B, h, w, 3) - 0.45) / 0.225).astype(np.float32)
 
 
-def _v2_variables(norm, seed=1):
-    """A perturbed Flax tree of the JAX GoogleResNetv2 from a jitted ``init``."""
+@functools.lru_cache(maxsize=None)
+def _v2_init(norm):
+    """The JAX GoogleResNetv2 and its Flax tree from a jitted ``init``, once per norm."""
     net = jax_google.GoogleResNetv2(norm=norm)
-    variables = jax.jit(lambda: net.init(jax.random.PRNGKey(0), jnp.zeros((1, 64, 64, 3))))()
-    return net, randomize_variables(to_numpy_tree(variables), seed=seed)
+    return net, to_numpy_tree(jax.jit(lambda: net.init(jax.random.PRNGKey(0), jnp.zeros((1, 64, 64, 3))))())
+
+
+def _v2_variables(norm, seed=1):
+    """A perturbed copy of :func:`_v2_init`'s tree."""
+    net, variables = _v2_init(norm)
+    return net, randomize_variables(variables, seed=seed)
 
 
 @pytest.mark.parametrize("norm", ["BN", "randLN"])
@@ -261,10 +268,13 @@ def test_rigid_motion_learning_losses_and_gradient_match_jax():
     assert {"pose_net.rot_scale", "pose_net.trans_scale", "depth_net.conv1.weight"} <= set(want)
 
 
-def test_warm_start_on_a_net_without_a_torchvision_encoder(tmp_path, caplog):
+def test_warm_start_on_a_net_without_a_torchvision_encoder(tmp_path, caplog, monkeypatch):
     """``ENCODER_NAME 18pt`` on GoogleResNetv2 with a ResNet-18 weight file in
     reach: the JAX package warns of the layout mismatch and trains from its
     init; so does the port, and every weight stays as it was, to the bit."""
+    # caplog listens at the root: an entry-point test earlier in the same worker leaves the port's logger
+    # not propagating there (utils.logger.setup_logger)
+    monkeypatch.setattr(logging.getLogger("simpledepthestimation_tpu_torch"), "propagate", True)
     from simpledepthestimation_tpu_torch.models.resnet import ResNetEncoder
 
     trunk = ResNetEncoder(18).encoder

@@ -86,7 +86,8 @@ def test_every_module_imports_without_jax(loaded_modules):
         f"projects/{family}/train_torch.py" for family in ("MonoDepth2", "MotionLearning", "Supervised")}
     assert {os.path.relpath(p, REPO) for p in TOOLS} == {
         f"tools/{name}_torch.py" for name in ("train_net", "plain_train_net", "export_inference", "demo",
-                                              "import_torch_checkpoint")}
+                                              "import_torch_checkpoint", "bench_models", "profile_step",
+                                              "trace_step", "bench_loader")}
     bad = loaded & {"jax", "jaxlib", "flax", "optax", "orbax"}
     assert not bad, bad
 
@@ -108,18 +109,20 @@ def test_nothing_imports_opencv(loaded_modules):
     """The data and evaluation code reads PNG and JPEG files, writes PNG files
     and resizes frames without OpenCV, which the GPU machine need not have. The
     demo imports it only for ``--video``, in one function, and refuses that
-    without it; ``chip_smoke.py`` only to report its version and to hold the
+    without it; so does the loader bench, to write its tree as the JAX tool
+    does; ``chip_smoke.py`` only to report its version and to hold the
     JPEG reader against ``cv2.imread`` where it imports, in two functions."""
     import re
 
     _, loaded = loaded_modules
     assert "cv2" not in loaded
-    _assert_no_import("cv2", exempt=("tools/demo_torch.py", "chip_smoke.py"))
+    _assert_no_import("cv2", exempt=("tools/demo_torch.py", "tools/bench_loader_torch.py", "chip_smoke.py"))
     pattern = re.compile(r"^(\s*)(?:from|import)\s+cv2\b", re.M)
-    with open(os.path.join(REPO, "tools", "demo_torch.py")) as f:
-        demo = f.read()
-    assert pattern.findall(demo) == ["        "]  # one import, in the body of a function
-    assert re.search(r"def _opencv\(\):\n    try:\n        import cv2\n", demo)
+    for tool in ("demo_torch.py", "bench_loader_torch.py"):
+        with open(os.path.join(REPO, "tools", tool)) as f:
+            source = f.read()
+        assert pattern.findall(source) == ["        "], tool  # one import, in the body of a function
+        assert re.search(r"def _opencv\(\):\n    try:\n        import cv2\n", source), tool
     with open(os.path.join(REPO, "chip_smoke.py")) as f:
         smoke = f.read()
     assert len(pattern.findall(smoke)) == 2 and all(indent for indent in pattern.findall(smoke))

@@ -33,6 +33,14 @@ MOTION = os.path.join(REPO, "projects", "MotionLearning", "configs", "resnet18.y
 LOGGER = "simpledepthestimation_tpu_torch.models.pretrained"
 
 
+@pytest.fixture(autouse=True)
+def _port_log_reaches_caplog(monkeypatch):
+    """``caplog`` listens at the root logger. An entry-point test that ran earlier in the same
+    worker process (``utils.logger.setup_logger``) leaves the port's logger not propagating
+    there; these tests read the warnings that logger gives."""
+    monkeypatch.setattr(logging.getLogger("simpledepthestimation_tpu_torch"), "propagate", True)
+
+
 def _cfgs(path, extra=()):
     """The shipped yaml as it stands (``ENCODER_NAME "18pt"``) under both packages."""
     out = []

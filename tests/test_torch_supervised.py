@@ -44,6 +44,7 @@ from simpledepthestimation_tpu.models import build_model as build_model_jax
 from simpledepthestimation_tpu.parallel.mesh import build_mesh
 from simpledepthestimation_tpu.parallel.train_step import TrainState as JTrainState
 from simpledepthestimation_tpu.parallel.train_step import make_train_step as jax_make_train_step
+from simpledepthestimation_tpu.parallel.train_step import place_replicated
 from simpledepthestimation_tpu.solver.build import build_optimizer as jax_build_optimizer
 from simpledepthestimation_tpu_torch.engine import default_argument_parser, simple_main
 from simpledepthestimation_tpu_torch.engine import defaults as engine_defaults
@@ -109,10 +110,12 @@ def test_three_adamw_poly_steps_match_the_jax_step(shared):
     cfg_j, cfg_t, variables, batches = shared
     tx, schedule = jax_build_optimizer(cfg_j, STEPS_PER_EPOCH)
     params = jax.tree_util.tree_map(jnp.asarray, variables["params"])
-    j_state = JTrainState(step=jnp.zeros((), jnp.int32), params=params,
-                          batch_stats=jax.tree_util.tree_map(jnp.asarray, variables["batch_stats"]),
-                          opt_state=tx.init(params))
-    j_step = jax_make_train_step(build_model_jax(cfg_j), tx, build_mesh(shape=(1,)), donate=False, adaptive_ywin=0)
+    mesh = build_mesh(shape=(1,))
+    # placed on the mesh as the step places its outputs: one compile for the three steps, not two
+    j_state = place_replicated(JTrainState(step=jnp.zeros((), jnp.int32), params=params,
+                                           batch_stats=jax.tree_util.tree_map(jnp.asarray, variables["batch_stats"]),
+                                           opt_state=tx.init(params)), mesh)
+    j_step = jax_make_train_step(build_model_jax(cfg_j), tx, mesh, donate=False, adaptive_ywin=0)
 
     state = create_train_state(cfg_t, device="cpu", steps_per_epoch=STEPS_PER_EPOCH)
     load_flax_variables(state.model, variables["params"], variables["batch_stats"])

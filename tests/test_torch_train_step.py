@@ -32,6 +32,7 @@ from simpledepthestimation_tpu.parallel.mesh import build_mesh
 from simpledepthestimation_tpu.parallel.train_step import TrainState as JTrainState
 from simpledepthestimation_tpu.parallel.train_step import make_eval_step as jax_make_eval_step
 from simpledepthestimation_tpu.parallel.train_step import make_train_step as jax_make_train_step
+from simpledepthestimation_tpu.parallel.train_step import place_replicated
 from simpledepthestimation_tpu.solver.build import build_optimizer as jax_build_optimizer
 from simpledepthestimation_tpu_torch.models import build_model
 from simpledepthestimation_tpu_torch.models.flax_import import load_flax_variables
@@ -81,22 +82,49 @@ def _flat(sd, keys):
     return np.concatenate([sd[k].detach().numpy().astype(np.float64).ravel() for k in keys])
 
 
+def _first_gradient(opt_state):
+    """The JAX step's gradient at its first step, read from the Adam first
+    moment it left: optax starts ``mu`` at zero and updates it to
+    ``(1 − b1)·g`` (``b1`` 0.9, ``SOLVER.OPT adam_multistep``), so ``g`` comes
+    back within two roundings. Each parameter group's moment holds its own
+    leaves and a ``MaskedNode`` for the other group's."""
+    import optax
+
+    adam = [s for s in jax.tree_util.tree_leaves(opt_state, is_leaf=lambda x: isinstance(x, optax.ScaleByAdamState))
+            if isinstance(s, optax.ScaleByAdamState)]
+    assert len(adam) == 2 and all(int(s.count) == 1 for s in adam)  # depth and pose, after one update
+    mu = jax.tree_util.tree_map(lambda a, b: b if isinstance(a, optax.MaskedNode) else a, adam[0].mu, adam[1].mu,
+                                is_leaf=lambda x: isinstance(x, optax.MaskedNode))
+    return jax.tree_util.tree_map(lambda m: np.asarray(m) / np.float32(1 - 0.9), mu)
+
+
 def _run_jax_trajectory(variables, batches, grad_clip):
     cfg_j, _ = monodepth2_cfgs(OVERRIDES)
     model = build_model_jax(cfg_j)
     tx, _ = jax_build_optimizer(cfg_j, STEPS_PER_EPOCH)
     params = jax.tree_util.tree_map(jnp.asarray, variables["params"])
     stats = jax.tree_util.tree_map(jnp.asarray, variables["batch_stats"])
-    state = JTrainState(step=jnp.zeros((), jnp.int32), params=params, batch_stats=stats,
-                        opt_state=tx.init(params))
     mesh = build_mesh(shape=(1,))
+    # placed on the mesh as the step places its outputs: one compile for the three steps, not two
+    state = place_replicated(JTrainState(step=jnp.zeros((), jnp.int32), params=params, batch_stats=stats,
+                                         opt_state=tx.init(params)), mesh)
     step = jax_make_train_step(model, tx, mesh, donate=False, grad_clip=grad_clip, adaptive_ywin=0)
     metrics = []
     for i, batch in enumerate(batches):
         state, m = step(state, {k: jnp.asarray(v) for k, v in batch.items()}, jax.random.PRNGKey(i))
         metrics.append({k: float(v) for k, v in m.items()})
+        if i == 0:
+            first_gradient = _first_gradient(state.opt_state)
     depth = np.asarray(jax_make_eval_step(model, mesh)(state, {k: jnp.asarray(v) for k, v in batches[0].items()}))
-    return state, metrics, depth
+    return state, metrics, depth, first_gradient
+
+
+@pytest.fixture(scope="module")
+def jax_trajectory(shared):
+    """The JAX step's three-step trajectory without clipping, run once: the
+    trajectory test and the gradient test (its first step) read it."""
+    batches, variables = shared
+    return _run_jax_trajectory(variables, batches, grad_clip=0.0)
 
 
 def _run_port_trajectory(variables, batches, grad_clip):
@@ -107,8 +135,8 @@ def _run_port_trajectory(variables, batches, grad_clip):
     return cfg_t, state, metrics, depth
 
 
-def _assert_trajectories_match(variables, batches, grad_clip):
-    j_state, j_metrics, j_depth = _run_jax_trajectory(variables, batches, grad_clip)
+def _assert_trajectories_match(variables, batches, grad_clip, jax_run):
+    j_state, j_metrics, j_depth, _ = jax_run
     cfg_t, state, metrics, depth = _run_port_trajectory(variables, batches, grad_clip)
 
     # (e) metrics are tensors; step count and rate advanced
@@ -163,18 +191,14 @@ def _assert_trajectories_match(variables, batches, grad_clip):
     np.testing.assert_allclose(nhwc(depth_same), j_depth, rtol=1e-4, atol=0)
 
 
-def test_parameter_gradient_matches_jax_grad(shared):
+def test_parameter_gradient_matches_jax_grad(shared, jax_trajectory):
+    """The gradient of the summed losses on the first batch, against the JAX
+    step's own ``jax.value_and_grad`` at its first step (read from its Adam
+    state: one compile serves this test and the trajectory)."""
     batches, variables = shared
-    cfg_j, cfg_t = monodepth2_cfgs(OVERRIDES)
-    model_j = build_model_jax(cfg_j)
-    jb = {k: jnp.asarray(v) for k, v in batches[0].items()}
-
-    def loss_fn(params):
-        out, _ = model_j.apply({"params": params, "batch_stats": variables["batch_stats"]}, jb,
-                               train=True, mutable=["batch_stats"])
-        return sum(v for k, v in out.items() if "loss" in k)
-
-    loss_j, grads_j = jax.jit(jax.value_and_grad(loss_fn))(variables["params"])
+    _, cfg_t = monodepth2_cfgs(OVERRIDES)
+    _, j_metrics, _, grads_j = jax_trajectory
+    loss_j = j_metrics[0]["total_loss"]
     want = _as_state_dict(cfg_t, grads_j, variables["batch_stats"])
 
     model_t = build_model(cfg_t, device="cpu")
@@ -202,14 +226,14 @@ def test_parameter_gradient_matches_jax_grad(shared):
     assert any(k.startswith("pose_net.") for k in names) and any(k.startswith("depth_net.") for k in names)
 
 
-def test_trajectory_matches_jax_train_step(shared):
+def test_trajectory_matches_jax_train_step(shared, jax_trajectory):
     batches, variables = shared
-    _assert_trajectories_match(variables, batches, grad_clip=0.0)
+    _assert_trajectories_match(variables, batches, 0.0, jax_trajectory)
 
 
 def test_trajectory_with_gradient_clipping_matches_jax(shared):
     batches, variables = shared
-    _assert_trajectories_match(variables, batches, grad_clip=0.05)
+    _assert_trajectories_match(variables, batches, 0.05, _run_jax_trajectory(variables, batches, grad_clip=0.05))
 
 
 def test_train_state_and_step_contract(shared):

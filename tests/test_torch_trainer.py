@@ -62,8 +62,10 @@ from simpledepthestimation_tpu.engine import trainer as jax_trainer_module
 from simpledepthestimation_tpu.engine.hooks import PreciseBN as JaxPreciseBN
 from simpledepthestimation_tpu.engine.trainer import DefaultTrainer as JaxDefaultTrainer
 from simpledepthestimation_tpu.models.torch_import import convert_meta_arch
+from simpledepthestimation_tpu.parallel.mesh import build_mesh
 from simpledepthestimation_tpu.parallel.train_step import TrainState as JTrainState
 from simpledepthestimation_tpu.parallel.train_step import compute_precise_bn_stats as jax_compute_precise_bn_stats
+from simpledepthestimation_tpu.parallel.train_step import place_replicated
 from simpledepthestimation_tpu_torch.engine import DefaultTrainer, do_train, runtime
 from simpledepthestimation_tpu_torch.engine.train_loop import SimpleTrainer
 from simpledepthestimation_tpu_torch.models import build_model
@@ -116,8 +118,11 @@ def runs(tmp_path_factory):
     torch.save(port.state_dict(), root / "weights.pth")
 
     def shared_state(model, optimizer, sample_batch, rng, train=True):
-        return JTrainState(step=jnp.zeros((), jnp.int32), params=variables["params"],
-                           batch_stats=variables["batch_stats"], opt_state=optimizer.init(variables["params"]))
+        # placed on the trainer's mesh as the step places its outputs, so that the first step
+        # compiles the executable every later step runs (an unplaced state compiles it twice)
+        return place_replicated(JTrainState(step=jnp.zeros((), jnp.int32), params=variables["params"],
+                                            batch_stats=variables["batch_stats"],
+                                            opt_state=optimizer.init(variables["params"])), build_mesh(shape=(1,)))
 
     cfg_j.OUTPUT_DIR = str(root / "jax")
     with pytest.MonkeyPatch.context() as mp:
@@ -168,7 +173,9 @@ def test_precise_bn_matches_the_jax_package_on_equal_weights(runs):
     model = copy.deepcopy(trainer.model)
     sd = {k: v for k, v in model.state_dict().items() if not k.endswith("num_batches_tracked")}
     params, stats = convert_meta_arch(sd, runs["cfg_j"])
-    jstate = JTrainState(step=jnp.zeros((), jnp.int32), params=params, batch_stats=stats, opt_state=None)
+    # placed as the hook's state is, so that the hook's compiled update is reused, not compiled again
+    jstate = place_replicated(JTrainState(step=jnp.zeros((), jnp.int32), params=params, batch_stats=stats,
+                                          opt_state=None), jax_trainer.mesh)
 
     jax_trainer.loader.set_epoch(1)
     trainer.loader.set_epoch(1)
