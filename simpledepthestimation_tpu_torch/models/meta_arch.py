@@ -39,6 +39,7 @@ from .build import META_ARCH_REGISTRY, build_depth_net, build_pose_net
 from ..geometry.camera import resize_img, scale_intrinsics, view_synthesis
 from ..ops.photometric import photometric_map
 from ..parallel import mesh
+from ..utils.tracing import span
 
 
 def normalize_image(img: torch.Tensor, mean, std) -> torch.Tensor:
@@ -167,7 +168,8 @@ class MonoDepth2Model(nn.Module):
     def forward(self, batch: Dict[str, torch.Tensor], train: bool = False,
                 generator: Optional[torch.Generator] = None) -> Dict[str, torch.Tensor]:
         net_input = normalize_image(batch["img"], self.pixel_mean, self.pixel_std)
-        depth_pred = self.depth_net(net_input, flip=batch.get("flip"), train=train)
+        with span("meta_arch.depth_net"):
+            depth_pred = self.depth_net(net_input, flip=batch.get("flip"), train=train)
 
         if not train:
             return {"depth_pred": depth_pred[0]}
@@ -175,8 +177,17 @@ class MonoDepth2Model(nn.Module):
         # pose net on the (jittered) target + contexts, channel-concat
         ctx = batch["ctx_img"]  # [B,N,3,H,W]
         B, N, _, H, W = ctx.shape
-        pose_input = torch.cat([batch["img"]] + [ctx[:, j] for j in range(N)], dim=1)
-        poses = self.pose_net(pose_input, train=train)  # N × [B,4,4]
+        with span("meta_arch.pose_net"):
+            pose_input = torch.cat([batch["img"]] + [ctx[:, j] for j in range(N)], dim=1)
+            poses = self.pose_net(pose_input, train=train)  # N × [B,4,4]
+        with span("meta_arch.loss"):
+            return self._loss(batch, depth_pred, poses)
+
+    def _loss(self, batch: Dict[str, torch.Tensor], depth_pred, poses) -> Dict[str, torch.Tensor]:
+        """The loss pass of ``forward``: photometric (min-reprojection, automask),
+        smoothness and the optional supervised and variance terms over the
+        depth net's scales, from the pose net's ``poses`` (N × [B,4,4])."""
+        B, N, _, H, W = batch["ctx_img"].shape
 
         image = batch["img_orig"]
         contexts_orig = batch["ctx_img_orig"]  # [B,N,3,H,W]

@@ -46,6 +46,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from ..parallel import mesh
+from ..utils.tracing import span
 
 
 class _CastingConv:
@@ -136,31 +137,33 @@ class BatchNorm2d(nn.BatchNorm2d):
     """float32 batch norm with an explicit ``train`` argument."""
 
     def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
-        if not train:
-            return F.batch_norm(
-                x.float(), self.running_mean, self.running_var, self.weight, self.bias,
-                training=False, momentum=self.momentum, eps=self.eps,
-            )
-        if mesh.is_global():
-            out, mean, var = _GlobalBatchNorm.apply(x.float(), self.weight, self.bias, self.eps)
-        else:
-            # the statistics are updated by hand from the batch mean and the biased
-            # batch variance (1/invstd² − eps) that the normalisation saves anyway
-            out, mean, invstd = torch.native_batch_norm(
-                x.float(), self.weight, self.bias, None, None, True, self.momentum, self.eps
-            )
-            var = None
-        if getattr(_frozen, "depth", 0):
+        with span("norm.batch_norm"):
+            if not train:
+                return F.batch_norm(
+                    x.float(), self.running_mean, self.running_var, self.weight, self.bias,
+                    training=False, momentum=self.momentum, eps=self.eps,
+                )
+            if mesh.is_global():
+                out, mean, var = _GlobalBatchNorm.apply(x.float(), self.weight, self.bias, self.eps)
+            else:
+                # the statistics are updated by hand from the batch mean and the biased
+                # batch variance (1/invstd² − eps) that the normalisation saves anyway
+                out, mean, invstd = torch.native_batch_norm(
+                    x.float(), self.weight, self.bias, None, None, True, self.momentum, self.eps
+                )
+                var = None
+            if getattr(_frozen, "depth", 0):
+                return out
+            with torch.no_grad():
+                self.num_batches_tracked += 1
+                self.running_mean.lerp_(mean, self.momentum)
+                self.running_var.lerp_(invstd.pow(-2).sub_(self.eps) if var is None else var, self.momentum)
             return out
-        with torch.no_grad():
-            self.num_batches_tracked += 1
-            self.running_mean.lerp_(mean, self.momentum)
-            self.running_var.lerp_(invstd.pow(-2).sub_(self.eps) if var is None else var, self.momentum)
-        return out
 
 
 class GroupNorm(nn.GroupNorm):
     """float32 group norm."""
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return F.group_norm(x.float(), self.num_groups, self.weight, self.bias, self.eps)
+        with span("norm.group_norm"):
+            return F.group_norm(x.float(), self.num_groups, self.weight, self.bias, self.eps)

@@ -20,7 +20,6 @@ import shutil
 import subprocess
 import sys
 import threading
-import time
 from typing import List, Optional
 
 import torch
@@ -34,7 +33,6 @@ NVCC_FLAGS = [
 
 _lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None
-build_seconds: Optional[float] = None  # wall time of the build this process made
 
 
 def build_dir() -> str:
@@ -124,7 +122,7 @@ def _declare(lib: ctypes.CDLL) -> None:
 def load(verbose: bool = False) -> ctypes.CDLL:
     """The kernels' library, built first if this checkout has not built it yet.
     Once loaded it is returned without taking the lock."""
-    global _lib, build_seconds
+    global _lib
     lib = _lib
     if lib is not None:
         return lib
@@ -136,9 +134,7 @@ def load(verbose: bool = False) -> ctypes.CDLL:
             raise RuntimeError(f"no CUDA sources under {CSRC_DIR}")
         lib_path = os.path.join(build_dir(), f"libsde_kernels_{_source_hash(srcs)}.so")
         if not os.path.isfile(lib_path):
-            t0 = time.perf_counter()
             _build(lib_path, srcs, verbose)
-            build_seconds = time.perf_counter() - t0
         lib = ctypes.CDLL(lib_path)
         _declare(lib)
         _lib = lib

@@ -56,6 +56,7 @@ from ..models.build import build_model, resolve_device
 from ..models.norm_layers import BatchNorm2d, statistics_frozen
 from ..models.pretrained import maybe_load_pretrained_encoder
 from ..solver.build import ScheduledLR, build_optimizer
+from ..utils.tracing import span
 from . import mesh
 
 
@@ -190,7 +191,9 @@ def make_train_step(
     step waits for the device. ``remat``: keep the blocks' inputs only and
     recompute their forward in the backward (``TPU.REMAT``, :func:`_rematerialised`).
     In several processes ``batch`` is the rank's rows of the global batch, the
-    metrics are the global batch's, equal on every rank, and so is the update."""
+    metrics are the global batch's, equal on every rank, and so is the update.
+    Under a profiler the forward, the backward and the grad norm are spans
+    (:func:`..utils.tracing.span`); Adam has PyTorch's own."""
     params = [p for p in state.model.parameters() if p.requires_grad]
     device = params[0].device
 
@@ -200,18 +203,20 @@ def make_train_step(
             batch = {**batch, **{k: torch.full((), v, dtype=torch.float32, device=device)
                                  for k, v in extra.items()}}
         state.model.zero_grad(set_to_none=True)  # the frozen parameters are in no optimizer group
-        with _rematerialised(state.model, state.noise_generator) if remat else contextlib.nullcontext():
-            outputs = state.model(batch, train=True, generator=state.noise_generator)
-        total = torch.stack([v for k, v in outputs.items() if "loss" in k]).sum()
-        mesh.backward(total)
-
-        grads = [p.grad for p in params if p.grad is not None]
-        mesh.sum_gradients(grads)
-        grad_norm = torch.nn.utils.get_total_norm(grads, norm_type=2.0)
-        if grad_clip > 0.0:
-            scale = torch.clamp(grad_clip / (grad_norm + 1e-12), max=1.0)
-            for g in grads:
-                g.mul_(scale)
+        with span("train_step.forward"):
+            with _rematerialised(state.model, state.noise_generator) if remat else contextlib.nullcontext():
+                outputs = state.model(batch, train=True, generator=state.noise_generator)
+            total = torch.stack([v for k, v in outputs.items() if "loss" in k]).sum()
+        with span("train_step.backward"):
+            mesh.backward(total)
+            grads = [p.grad for p in params if p.grad is not None]
+            mesh.sum_gradients(grads)
+        with span("train_step.grad_norm"):
+            grad_norm = torch.nn.utils.get_total_norm(grads, norm_type=2.0)
+            if grad_clip > 0.0:
+                scale = torch.clamp(grad_clip / (grad_norm + 1e-12), max=1.0)
+                for g in grads:
+                    g.mul_(scale)
 
         state.optimizer.step()
         state.scheduler.step()
